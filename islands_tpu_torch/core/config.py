@@ -1,8 +1,8 @@
 """Configuration types for the LEANN-style index.
 
-Port of islands_tpu/core/config.py: `DistanceMetric`, `PruningStrategy` and
-`LeannConfig` with the same fields, defaults, presets and `validate()`. The
-PQ, HNSW and search configs come with the slices that use them.
+Port of islands_tpu/core/config.py: `DistanceMetric`, `PruningStrategy`,
+`LeannConfig` and `PQConfig` with the same fields, defaults, presets and
+`validate()`. The HNSW and search configs come with the slices that use them.
 """
 
 from __future__ import annotations
@@ -111,3 +111,34 @@ class LeannConfig:
             raise ConfigError("wave_size must be > 0")
         if self.expand_width <= 0:
             raise ConfigError("expand_width must be > 0")
+
+
+@dataclasses.dataclass(frozen=True)
+class PQConfig:
+    """Product quantization configuration: `num_subquantizers` subspaces of
+    `num_centroids` centroids each, trained by k-means for
+    `training_iterations` Lloyd steps from a k-means++ start seeded by
+    `seed` (None means 0)."""
+
+    num_subquantizers: int = 8
+    num_centroids: int = 256
+    training_iterations: int = 25
+    seed: int | None = None
+
+    def validate(self, dimension: int) -> None:
+        if self.num_subquantizers <= 0:
+            raise ConfigError("num_subquantizers must be > 0")
+        if dimension % self.num_subquantizers != 0:
+            raise ConfigError(
+                f"dimension {dimension} must be divisible by "
+                f"num_subquantizers {self.num_subquantizers}")
+        if not 1 <= self.num_centroids <= 65536:
+            raise ConfigError("num_centroids must be in range [1, 65536]")
+
+    @property
+    def bytes_per_vector(self) -> int:
+        """Stored code bytes per vector: one per subspace up to 256
+        centroids, two above (the reference's on-disk u16 codes)."""
+        if self.num_centroids <= 256:
+            return self.num_subquantizers
+        return self.num_subquantizers * 2

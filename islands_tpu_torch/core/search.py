@@ -7,13 +7,17 @@ single-query `lax.while_loop`; here every function takes the whole batch
 The search keeps, per query, a fixed-width ascending pool of (distance,
 packed id+expanded code); each hop expands the best `expand_width`
 unexpanded entries, dedups their neighbours against the hop and the pool,
-scores them and merges them in. Three loops:
+scores them and merges them in. Four loops:
 - `batched_search`: the exact gate, every discovery scored exactly;
 - `batched_sketch_search`: the build's loop, driven by sketch distances;
 - `batched_sketch_gated_query`: the query loop; sketch distances feed an
   approximate queue (AQ) and only its best `promote_width` entries per hop
-  are scored exactly. `hop_merge="fused"` runs the AQ update as kernel K1
-  (ops/hop_merge.py); `"inline"` composes it from ops/merge.py.
+  are scored exactly;
+- `batched_two_level_search`: the same gate with PQ-ADC distances over
+  inline neighbour-code blocks (kernel K2 through pq.gated_block_scorer_for)
+  and exact scores recomputed through an embedding provider.
+In both gated loops `hop_merge="fused"` runs the AQ update as kernel K1
+(ops/hop_merge.py); `"inline"` composes it from ops/merge.py.
 """
 
 from __future__ import annotations
@@ -27,7 +31,12 @@ from islands_tpu_torch.device import resolve_device, to_device
 from islands_tpu_torch.ops import distance as dist_ops
 from islands_tpu_torch.ops import proj as proj_ops
 from islands_tpu_torch.ops.hop_merge import HOLE, hop_merge
-from islands_tpu_torch.ops.merge import merge_sorted_with_new, pack_id_expanded, smallest_k
+from islands_tpu_torch.ops.merge import (
+    argsort,
+    merge_sorted_with_new,
+    pack_id_expanded,
+    smallest_k,
+)
 
 _INF = float("inf")
 
@@ -197,6 +206,60 @@ def batched_sketch_search(qs, neighbors, nbr_sketch, node_sketch, entry_point,
     return pool_d, pool_code >> 1
 
 
+def _check_hop_merge(mode: str, n: int) -> None:
+    if mode not in ("inline", "fused"):
+        raise ValueError(f"hop_merge must be 'inline' or 'fused', got {mode!r}")
+    if mode == "fused" and n >= HOLE:
+        raise ValueError(f"the fused hop-merge needs n < 2^30, got {n}")
+
+
+def _aq_update(nbr_ids, d_approx, aq_d, aq_i, pool_code, n: int, promote_width: int,
+               mode: str):
+    """One hop's approximate-queue update, shared by the gated loops: drop
+    discoveries that repeat within the hop or are already in the AQ or the
+    pool, merge the rest into the AQ and split off its best `promote_width`
+    entries. nbr_ids [B, E] (invalid = n), d_approx [B, E] (+inf invalid).
+    Returns (prom_d, prom_ids [B, pw], aq_d, aq_i [B, A]).
+
+    "fused" runs the id-sort dedup, the descending sort, the merge and the
+    split as kernel K1; membership against AQ and pool (order-free) stays
+    out here. "inline" composes the same from ops/merge."""
+    a = aq_d.shape[1]
+    if mode == "fused":
+        keep = ((nbr_ids < n) & _not_in_set(nbr_ids, aq_i)
+                & _not_in_set(nbr_ids, pool_code >> 1))
+        nd = torch.where(keep, d_approx, _INF)
+        ni = torch.where(keep, nbr_ids, n).to(torch.int32)
+        return hop_merge(nd, ni, aq_d, aq_i, promote_width)
+    sorted_ids, keep, d_approx = _dedup_sorted(nbr_ids, n, d_approx)
+    keep = keep & _not_in_set(sorted_ids, aq_i)
+    keep = keep & _not_in_set(sorted_ids, pool_code >> 1)
+    new_ids = torch.where(keep, sorted_ids, SENTINEL)
+    new_d = torch.where(keep, d_approx, _INF)
+    aq_d_all, aq_i_all = merge_sorted_with_new(aq_d, aq_i, new_d, new_ids)
+    pw = promote_width
+    return (aq_d_all[:, :pw], aq_i_all[:, :pw],
+            aq_d_all[:, pw:pw + a], aq_i_all[:, pw:pw + a])
+
+
+def _merge_into_pool(pool_d, pool_code, d, ids, valid):
+    """Merge scored entries [B, P] into the pool as unexpanded entries
+    (+inf and SENTINEL where not valid), keeping the pool's width."""
+    code = pack_id_expanded(torch.where(valid, ids, SENTINEL), ~valid)
+    all_d, all_code = merge_sorted_with_new(pool_d, pool_code, d, code)
+    ef = pool_d.shape[1]
+    return all_d[:, :ef], all_code[:, :ef]
+
+
+def _rescore_into_pool(score, pool_d, pool_code, ids, valid, n_exact):
+    """Score `ids` [B, P] exactly where `valid` (`score(ids, valid)` gives
+    +inf elsewhere), count them in n_exact [B] and merge them into the pool.
+    -> (pool_d, pool_code, n_exact)."""
+    d = score(torch.where(valid, ids, 0), valid)
+    pool_d, pool_code = _merge_into_pool(pool_d, pool_code, d, ids, valid)
+    return pool_d, pool_code, n_exact + valid.sum(dim=1, dtype=torch.int32)
+
+
 def batched_sketch_gated_query(qp, qs, x_prepped, scale, neighbors, nbr_sketch,
                                node_sketch, routing_ids, *, metric, dim, ef, k,
                                aq_width, promote_width, expand_width=4,
@@ -210,14 +273,10 @@ def batched_sketch_gated_query(qp, qs, x_prepped, scale, neighbors, nbr_sketch,
     Returns (dists [B, k], ids [B, k], n_exact [B])."""
     b = qp.shape[0]
     n, m = neighbors.shape
-    em = expand_width * m
-    if hop_merge_mode not in ("inline", "fused"):
-        raise ValueError(f"hop_merge must be 'inline' or 'fused', got {hop_merge_mode!r}")
-    if hop_merge_mode == "fused" and n >= HOLE:
-        raise ValueError(f"the fused hop-merge needs n < 2^30, got {n}")
-    # A hop discovers at most em candidates; a wider promote window would
-    # shrink the AQ slice below aq_width.
-    promote_width = min(promote_width, em)
+    _check_hop_merge(hop_merge_mode, n)
+    # A hop discovers at most expand_width * m candidates; a wider promote
+    # window would shrink the AQ slice below aq_width.
+    promote_width = min(promote_width, expand_width * m)
 
     entry = route_entries(qs, routing_ids, node_sketch, metric)
     ones = torch.ones((b, 1), dtype=torch.bool, device=qp.device)
@@ -237,6 +296,9 @@ def batched_sketch_gated_query(qp, qs, x_prepped, scale, neighbors, nbr_sketch,
         aq_work = (aq_d[:, 0] < _INF) & (aq_d[:, 0] <= worst + margin)
         return exact_work | aq_work
 
+    def exact(ids, valid):
+        return stored_scorer(x_prepped, qp, ids, valid, metric)
+
     def body(state):
         pool_d, pool_code, aq_d, aq_i, n_exact = state
         pool_code, sel_ids, sel_valid = _pop(pool_d, pool_code, expand_width)
@@ -244,36 +306,11 @@ def batched_sketch_gated_query(qp, qs, x_prepped, scale, neighbors, nbr_sketch,
         d_approx = proj_ops.sketch_distance_calibrated(qs, raw, metric, scale, dim)
         d_approx = torch.where(nbr_valid, d_approx, _INF)
         nbr_ids = torch.where(nbr_valid, nbr_ids, n)
-
-        if hop_merge_mode == "fused":
-            # Membership against AQ and pool stays out here (order-free);
-            # the id-sort dedup, descending sort, AQ merge and promote split
-            # run in K1.
-            keep = ((nbr_ids < n) & _not_in_set(nbr_ids, aq_i)
-                    & _not_in_set(nbr_ids, pool_code >> 1))
-            nd = torch.where(keep, d_approx, _INF)
-            ni = torch.where(keep, nbr_ids, n).to(torch.int32)
-            prom_d, prom_ids, aq_d, aq_i = hop_merge(nd, ni, aq_d, aq_i, promote_width)
-            prom_valid = prom_d < _INF
-        else:
-            sorted_ids, keep, d_approx = _dedup_sorted(nbr_ids, n, d_approx)
-            keep = keep & _not_in_set(sorted_ids, aq_i)
-            keep = keep & _not_in_set(sorted_ids, pool_code >> 1)
-            new_ids = torch.where(keep, sorted_ids, SENTINEL)
-            new_d = torch.where(keep, d_approx, _INF)
-            aq_d_all, aq_i_all = merge_sorted_with_new(aq_d, aq_i, new_d, new_ids)
-            prom_ids = aq_i_all[:, :promote_width]
-            prom_valid = aq_d_all[:, :promote_width] < _INF
-            aq_d = aq_d_all[:, promote_width:promote_width + aq_width]
-            aq_i = aq_i_all[:, promote_width:promote_width + aq_width]
-
-        d_exact = stored_scorer(x_prepped, qp, torch.where(prom_valid, prom_ids, 0),
-                                prom_valid, metric)
-        n_exact = n_exact + prom_valid.sum(dim=1, dtype=torch.int32)
-        prom_code = pack_id_expanded(torch.where(prom_valid, prom_ids, SENTINEL),
-                                     ~prom_valid)
-        all_d, all_code = merge_sorted_with_new(pool_d, pool_code, d_exact, prom_code)
-        return all_d[:, :ef], all_code[:, :ef], aq_d, aq_i, n_exact
+        prom_d, prom_ids, aq_d, aq_i = _aq_update(nbr_ids, d_approx, aq_d, aq_i, pool_code,
+                                                  n, promote_width, hop_merge_mode)
+        pool_d, pool_code, n_exact = _rescore_into_pool(
+            exact, pool_d, pool_code, prom_ids, prom_d < _INF, n_exact)
+        return pool_d, pool_code, aq_d, aq_i, n_exact
 
     state = (pool_d, pool_code, aq_d, aq_i, n_exact)
     pool_d, pool_code, aq_d, aq_i, n_exact = _run_hops(
@@ -282,14 +319,8 @@ def batched_sketch_gated_query(qp, qs, x_prepped, scale, neighbors, nbr_sketch,
         # One end-of-loop exact rescore of the AQ head merges true
         # neighbours a narrow promote_width left in the queue.
         fr = min(final_rescore, aq_width)
-        fr_ids = aq_i[:, :fr]
-        fr_valid = aq_d[:, :fr] < _INF
-        d_fr = stored_scorer(x_prepped, qp, torch.where(fr_valid, fr_ids, 0),
-                             fr_valid, metric)
-        n_exact = n_exact + fr_valid.sum(dim=1, dtype=torch.int32)
-        fr_code = pack_id_expanded(torch.where(fr_valid, fr_ids, SENTINEL), ~fr_valid)
-        all_d, all_code = merge_sorted_with_new(pool_d, pool_code, d_fr, fr_code)
-        pool_d, pool_code = all_d[:, :ef], all_code[:, :ef]
+        pool_d, pool_code, n_exact = _rescore_into_pool(
+            exact, pool_d, pool_code, aq_i[:, :fr], aq_d[:, :fr] < _INF, n_exact)
     return pool_d[:, :k], (pool_code >> 1)[:, :k], n_exact
 
 
@@ -305,6 +336,123 @@ def route_entries(qs: torch.Tensor, routing_ids: torch.Tensor,
         d = (torch.sum(qs * qs, dim=1)[:, None] + torch.sum(raw * raw, dim=1)[None, :]
              - 2.0 * (qs @ raw.T))
     return routing_ids[torch.argmin(d, dim=1)].to(torch.int32)
+
+
+def make_recompute_scorer(embed, metric: DistanceMetric):
+    """Exact scorer that recomputes embeddings on the fly through a
+    provider's `embed(ids [B, E]) -> [B, E, d]`: scorer(qp [B, d], ids [B, E],
+    valid [B, E]) -> [B, E], +inf where not valid. Invalid ids are fetched as
+    id 0 and masked."""
+
+    def scorer(qp, ids, valid):
+        rows = embed(torch.where(valid, ids, 0).to(torch.int32))
+        rows = dist_ops.prep_corpus(rows, metric)
+        d = dist_ops.rowwise_distance(qp, rows, metric)
+        return torch.where(valid, d, _INF)
+
+    return scorer
+
+
+def route_entries_embed(q, embed, routing_ids: torch.Tensor,
+                        metric: DistanceMetric) -> torch.Tensor:
+    """Per-query entry points [B] by EXACT distance to a routing sample: one
+    [R]-row fetch through the provider's `embed`, then one [B, R] distance
+    matrix (a plain large product, torch.matmul). Raw (unprepped) queries;
+    pairwise_distance preps them. argmin takes the first minimum."""
+    rows = embed(routing_ids.to(torch.int32))
+    d = dist_ops.pairwise_distance(q, rows, metric)
+    return routing_ids[torch.argmin(d, dim=1)].to(torch.int32)
+
+
+def batched_two_level_search(qp, nbr_codes, prep_ctx, neighbors, entry_point, *,
+                             exact_scorer, approx_scorer, prep_fn, ef: int,
+                             aq_width: int, promote_width: int, expand_width: int = 4,
+                             max_iters: int = 100, promote_exact: bool = True,
+                             static_iters: bool = False, final_rescore: int = 0,
+                             hop_merge: str = "inline"):
+    """Two-level PQ-gated search over inline neighbour-code blocks.
+
+    qp [B, d] prepped queries; nbr_codes [N, m0*S] uint8
+    (pq.build_inline_codes); `prep_fn(prep_ctx, qp) -> tables [B, S, K]`;
+    `approx_scorer(tables, block_codes [B, E, S], valid [B, E]) -> [B, E]`
+    (pq.gated_block_scorer_for); `exact_scorer(qp, ids, valid) -> [B, E]`
+    (make_recompute_scorer); entry_point an int or [B] routed entries.
+
+    The pool runs on exact distances. Each hop expands the best
+    `expand_width` unexpanded pool entries, scores their neighbours by ADC
+    over the inline blocks into the approximate queue (AQ), and promotes the
+    AQ's best `promote_width` into the pool, scored exactly. Unlike the
+    sketch gate there is no noise margin: a query hops while its pool has an
+    unexpanded entry or its AQ head could still enter the pool.
+
+    `promote_exact=False` (end rerank) promotes at the ADC distance and
+    rescores the ef pool exactly once after the loop; `final_rescore=F`
+    (promote_exact only) rescores the AQ's best F once after the loop.
+    Returns (dists [B, ef], ids [B, ef], n_exact [B])."""
+    b = qp.shape[0]
+    n, m = neighbors.shape
+    _check_hop_merge(hop_merge, n)
+    promote_width = min(promote_width, expand_width * m)
+    dev = qp.device
+    tables = prep_fn(prep_ctx, qp)
+
+    entry = torch.as_tensor(entry_point, dtype=torch.int32, device=dev)
+    entry = torch.clamp(entry.expand(b), min=0).contiguous()
+    d_entry = exact_scorer(qp, entry[:, None],
+                           torch.ones((b, 1), dtype=torch.bool, device=dev))[:, 0]
+    pool_d, pool_code = _init_pool(entry, d_entry, ef)
+    aq_i = torch.full((b, aq_width), SENTINEL, dtype=torch.int32, device=dev)
+    aq_d = torch.full((b, aq_width), _INF, dtype=torch.float32, device=dev)
+    n_exact = torch.ones((b,), dtype=torch.int32, device=dev)
+
+    def cond(state):
+        pool_d, pool_code, aq_d, _, _ = state
+        # AQ distances are on the exact metric's scale, so "could the best
+        # approximate candidate improve the pool" compares across queues;
+        # the finite guard stops a query whose queues are both exhausted.
+        aq_work = (aq_d[:, 0] < _INF) & (aq_d[:, 0] <= pool_d[:, -1])
+        return _exact_cond(pool_d, pool_code) | aq_work
+
+    def exact(ids, valid):
+        return exact_scorer(qp, ids, valid)
+
+    def body(state):
+        pool_d, pool_code, aq_d, aq_i, n_exact = state
+        pool_code, sel_ids, sel_valid = _pop(pool_d, pool_code, expand_width)
+        safe, nbr_ids, nbr_valid = _expand(neighbors, sel_ids, sel_valid)
+        blocks = nbr_codes[safe].reshape(b, nbr_ids.shape[1], -1)  # [B, X*m0, S]
+        d_approx = approx_scorer(tables, blocks, nbr_valid)
+        nbr_ids = torch.where(nbr_valid, nbr_ids, n)
+        prom_d, prom_ids, aq_d, aq_i = _aq_update(nbr_ids, d_approx, aq_d, aq_i, pool_code,
+                                                  n, promote_width, hop_merge)
+        prom_valid = prom_d < _INF
+        if promote_exact:
+            pool_d, pool_code, n_exact = _rescore_into_pool(
+                exact, pool_d, pool_code, prom_ids, prom_valid, n_exact)
+        else:
+            # Pure-ADC hop: the AQ head enters the pool at its ADC distance
+            # (+inf where not valid).
+            pool_d, pool_code = _merge_into_pool(pool_d, pool_code, prom_d, prom_ids,
+                                                 prom_valid)
+        return pool_d, pool_code, aq_d, aq_i, n_exact
+
+    state = (pool_d, pool_code, aq_d, aq_i, n_exact)
+    pool_d, pool_code, aq_d, aq_i, n_exact = _run_hops(
+        cond, body, state, max_iters, static_iters)
+    if final_rescore > 0 and promote_exact:
+        fr = min(final_rescore, aq_width)
+        pool_d, pool_code, n_exact = _rescore_into_pool(
+            exact, pool_d, pool_code, aq_i[:, :fr], aq_d[:, :fr] < _INF, n_exact)
+    pool_ids = pool_code >> 1
+    if not promote_exact:
+        # One exact rescore of the pooled ef candidates, sorted stably by
+        # distance (lax.sort with num_keys=1; -0.0 equals +0.0).
+        valid = pool_d < _INF
+        d_re = exact_scorer(qp, torch.where(valid, pool_ids, 0), valid)
+        order = argsort(d_re)
+        pool_d, pool_ids = d_re.gather(1, order), pool_ids.gather(1, order)
+        n_exact = n_exact + valid.sum(dim=1, dtype=torch.int32)
+    return pool_d, pool_ids, n_exact
 
 
 def default_max_iters(ef: int, expand_width: int) -> int:

@@ -9,8 +9,9 @@ Order rules the port must keep to match the reference bit for bit:
 - `jax.lax.sort` and `jnp.argsort` are stable and compare floats as numbers
   (-0.0 == +0.0): `argsort` is a stable sort with zeros made equal.
 - `lax.top_k` puts the lower index first on ties but compares floats in IEEE
-  total order (-0.0 below +0.0 when negated): `smallest_k` sorts the int32
-  keys of `sort_key` stably. `torch.topk` promises no tie order.
+  total order (-0.0 below +0.0 when negated): `smallest_k` orders the int32
+  keys of `sort_key`, stably. `torch.topk` promises no tie order, so its
+  route makes the keys unique first.
 - The merge swaps a pair only when lo > hi, strictly: equal distances keep
   their slots, so ids on ties come out as the reference's do.
 
@@ -46,12 +47,36 @@ def argsort(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return torch.argsort(x + 0.0 if x.is_floating_point() else x, dim=dim, stable=True)
 
 
+# Rows up to this width take the sort route of `smallest_k`, wider float
+# rows the top-k route. torch sorts rows of up to 4096 in one block and
+# wider ones by a segmented radix sort, and the two routes cross at that
+# switch on the H100 (timed at the paths' widths by chip_smoke.py, phase 2).
+SORT_MAX_WIDTH = 4096
+
+
 def smallest_k(x: torch.Tensor, k: int) -> torch.Tensor:
     """Positions of the k smallest entries along the last axis, in the order
     `lax.top_k(-x, k)` returns them: ascending, lower index first on ties,
-    floats in total order."""
+    floats in total order. Two routes give the same positions: a stable
+    sort of the keys, and, for float rows wider than SORT_MAX_WIDTH (a
+    ground-truth chunk, a full-corpus scan), a top-k over unique int64 keys."""
     key = sort_key(x) if x.is_floating_point() else x
+    if x.is_floating_point() and x.shape[-1] > SORT_MAX_WIDTH:
+        return _smallest_k_topk(key, k)
+    return _smallest_k_sort(key, k)
+
+
+def _smallest_k_sort(key: torch.Tensor, k: int) -> torch.Tensor:
+    """The first k positions of a stable ascending sort of `key`."""
     return torch.argsort(key, dim=-1, stable=True)[..., :k]
+
+
+def _smallest_k_topk(key: torch.Tensor, k: int) -> torch.Tensor:
+    """The same positions from a top-k over (int32 key << 32 | position),
+    keys that are unique, so the order of ties does not depend on topk."""
+    pos = torch.arange(key.shape[-1], dtype=torch.int64, device=key.device)
+    wide = (key.to(torch.int64) << 32) | pos
+    return torch.topk(wide, k, dim=-1, largest=False, sorted=True).indices
 
 
 def bitonic_merge(d: torch.Tensor, aux: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -145,6 +145,16 @@ def _port_modules():
         for p in root.rglob("*.py"))
 
 
+@pytest.mark.parametrize("module", [
+    "islands_tpu_torch.core.embedding", "islands_tpu_torch.core.pq",
+    "islands_tpu_torch.core.leann", "islands_tpu_torch.ops.adc",
+    "islands_tpu_torch.convert"])
+def test_guard_covers_the_config4_modules(module):
+    # The config-4 slice's modules are among those the two guards below
+    # import and parse.
+    assert module in _port_modules()
+
+
 def test_import_isolation_subprocess():
     """Importing every module of the port loads neither jax nor islands_tpu."""
     code = ("import importlib, sys\n"

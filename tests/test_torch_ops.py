@@ -149,6 +149,24 @@ def test_sort_orders_match_the_reference_on_signed_zeros_and_ties():
                                   np.asarray(jnp.argsort(jnp.asarray(x))))
     _, top = jax.lax.top_k(-jnp.asarray(x), 6)
     np.testing.assert_array_equal(tmerge.smallest_k(_t(x), 6).numpy(), np.asarray(top))
+    key = tmerge.sort_key(_t(x))
+    for route in (tmerge._smallest_k_sort, tmerge._smallest_k_topk):
+        np.testing.assert_array_equal(route(key, 6).numpy(), np.asarray(top))
+
+
+@pytest.mark.parametrize("k", [1, 37, 500])
+def test_smallest_k_wide_matches_lax_top_k_on_wide_rows(k):
+    # Rows far wider than k and past the top-k route's width, with ties,
+    # signed zeros and +inf; both routes give lax.top_k's positions.
+    x = np.random.default_rng(k).integers(-3, 4, (5, tmerge.SORT_MAX_WIDTH + 5))
+    x = x.astype(np.float32) / 2
+    x[:, ::7] = -0.0
+    x[:, 5::11] = np.inf
+    _, top = jax.lax.top_k(-jnp.asarray(x), k)
+    np.testing.assert_array_equal(tmerge.smallest_k(_t(x), k).numpy(), np.asarray(top))
+    key = tmerge.sort_key(_t(x))
+    for route in (tmerge._smallest_k_sort, tmerge._smallest_k_topk):
+        np.testing.assert_array_equal(route(key, k).numpy(), np.asarray(top))
 
 
 # --- proj -------------------------------------------------------------------

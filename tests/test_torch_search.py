@@ -8,7 +8,9 @@ and inline hop-merge) and the exact gate,
   torch's summation orders may flip one promotion),
 - distances within 1e-5 on the rows whose ids agree,
 - recall@10 within 0.005.
-The port's fused and inline paths must be bit-identical."""
+The port's fused and inline paths must be bit-identical. The two-level loop
+is held to the reference on the metrics other than config 4's euclidean
+(tests/test_torch_leann.py has euclidean) with the same id tolerance."""
 
 import numpy as np
 import pytest
@@ -17,10 +19,16 @@ import torch
 from islands_tpu.core.build import build_index_with_sketch as jax_build
 from islands_tpu.core.config import DistanceMetric as JM
 from islands_tpu.core.config import LeannConfig as JConfig
+from islands_tpu.core.config import PQConfig as JPQConfig
+from islands_tpu.core.embedding import InMemoryEmbeddingProvider as JProvider
+from islands_tpu.core.leann import LeannIndex as JIndex
 from islands_tpu.core.search import StoredSearcher as JSearcher
 from islands_tpu.ops import distance as jd
-from islands_tpu_torch.convert import graph_from_numpy, sketch_from_numpy
+from islands_tpu_torch.convert import graph_from_numpy, leann_from_numpy, sketch_from_numpy
 from islands_tpu_torch.core.config import DistanceMetric as TM
+from islands_tpu_torch.core.config import LeannConfig as TConfig
+from islands_tpu_torch.core.config import PQConfig as TPQConfig
+from islands_tpu_torch.core.embedding import InMemoryEmbeddingProvider
 from islands_tpu_torch.core.search import StoredSearcher
 
 from conftest import make_vectors
@@ -121,6 +129,44 @@ def test_static_loop_matches_reference(setups):
     _, ji = s["ref"].search(s["q"], k=10, hop_merge="inline", **kw)
     _, ti = s["port"].search(torch.from_numpy(s["q"]), k=10, hop_merge="inline", **kw)
     assert np.mean(np.all(ti.numpy() == np.asarray(ji), axis=1)) >= 0.98
+
+
+@pytest.mark.parametrize("metric", ["cosine", "dotproduct", "manhattan"])
+def test_two_level_loop_matches_reference_on_other_metrics(metric):
+    # batched_two_level_search through LeannIndex on the reference's index
+    # (tests/test_torch_leann.py covers euclidean, config 4's metric).
+    # Distances: rtol 1e-6 on top of atol 1e-5, since dot products and L1
+    # sums here reach ~100, where an f32 ulp is ~8e-6.
+    rng = np.random.default_rng(5)
+    centres = rng.standard_normal((32, 32)).astype(np.float32)
+    x = (centres[rng.integers(0, 32, 1200)] + 1.2 * rng.standard_normal((1200, 32)))
+    q = (centres[rng.integers(0, 32, 64)] + 1.2 * rng.standard_normal((64, 32)))
+    x, q = x.astype(np.float32), q.astype(np.float32)
+    small = dict(m=8, m0=16, ef_construction=48, wave_size=256, intra_wave_k=8,
+                 reverse_slack=16)
+    pq = dict(num_subquantizers=8, num_centroids=64, training_iterations=6, seed=0)
+    ref = JIndex(JConfig(metric=JM(metric), **small))
+    ref.build_from_embeddings(x, with_pq=JPQConfig(**pq))
+    g = ref.graph
+    port = leann_from_numpy(
+        TConfig(metric=TM(metric), **small), 32,
+        graph=dict(neighbors=np.asarray(g.neighbors), degrees=np.asarray(g.degrees),
+                   levels=np.asarray(g.levels), entry_point=int(g.entry_point),
+                   max_level=int(g.max_level)),
+        pq=dict(centroids=np.asarray(ref.pq.codebook.centroids),
+                codes=np.asarray(ref.pq_codes), pq_config=TPQConfig(**pq)),
+        device="cpu")
+    jprov, tprov = JProvider(x), InMemoryEmbeddingProvider(x, device="cpu")
+    kw = dict(ef=32, rerank_ratio=0.25, routing_size=128, expand_width=2, max_iters=12,
+              promote_width=8, final_rescore=16, hop_merge="fused")
+    for search, args in (("search_two_level", kw), ("search_pq_scan", dict(rerank=32))):
+        jd_, ji = (np.asarray(a) for a in getattr(ref, search)(q, k=10, provider=jprov, **args))
+        td_, ti = (a.numpy() for a in getattr(port, search)(torch.from_numpy(q), k=10,
+                                                            provider=tprov, **args))
+        same = np.all(ti == ji, axis=1)
+        assert same.mean() >= 0.98, (search, same.mean())
+        np.testing.assert_allclose(td_[same], jd_[same], rtol=1e-6, atol=1e-5)
+        assert port.last_recompute_fraction == ref.last_recompute_fraction
 
 
 def test_empty_graph_returns_empty():
