@@ -1,17 +1,20 @@
 """Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py            # config 2 at 1,000,000 x 128, config 4 at 1,000,000 x 768
-    python3 chip_smoke.py --n 262144 # a smaller config-2 corpus (depth cut only)
+    python3 chip_smoke.py            # every phase, corpora of 1,000,000 vectors
+    python3 chip_smoke.py --n 262144 # a smaller config-2 corpus (depth cut only;
+                                     # phases 5-7 reuse it)
 
 Phases, each fatal on failure:
-1. set-up: the card's name and power limit; build the port's three CUDA
-   kernels from islands_tpu_torch/csrc (one nvcc each, all at once), with
+1. set-up: the card's name and power limit; build the port's CUDA kernels
+   from islands_tpu_torch/csrc (one nvcc per source, all at once), with
    ptxas's registers and shared memory per kernel.
 2. each kernel against its plain PyTorch version on the card, bit for bit,
    at its paths' shapes (ties and edge codes included), with its device time
    (torch.profiler, beside the CUDA-event time of the wrapper calls), the
    plain version's time, its bound and the time of one PyTorch library call
-   that computes the same function, where there is one. Then smallest_k's two
+   that computes the same function, where there is one. K4 (pairwise
+   tiles) is held within 1e-5 of the operands' squared norms (see
+   assert_pairwise_close), K5 (row gather) bit for bit. Then smallest_k's two
    routes (stable sort, top-k on unique keys) at the paths' row widths: equal
    positions, and the time of each, which sets merge.SORT_MAX_WIDTH.
 3. config 2, the main path of bench.py on the port: a seeded
@@ -25,6 +28,19 @@ Phases, each fatal on failure:
    two-level ladder of bench_extra.py (routing 65536, grouped ADC, fused
    hop-merge) and search_pq_scan at rerank 128 and 256: recall@10 and QPS
    per rung, exact distances, grouped == einsum and fused == inline.
+5. the gather bench (islands_tpu_torch.benches.gather_bench.main at the
+   reference bench's sizes, kernel K5) and the ops API: brute-force top-10
+   of phase 3's queries through ops.pairwise_l2 / pairwise_neg_dot with
+   use_kernel=True (kernel K4), against brute_force_topk.
+6. the index lifecycle at phase 3's corpus and LeannConfig:
+   LeannIndex.build_from_embeddings on 934,464 rows, extend to all rows (one
+   65,536-row re-index), save_index (with and without the sketch),
+   load_index, and LeannIndex.search (gate "none" at ef 64 and 128, the
+   sketch gate at the headline knobs) on the loaded and the in-memory index,
+   which must agree exactly; a StoredSearcher over the extended graph at
+   phase 3's headline rung must keep recall@10 >= 0.90.
+7. HNSW on the same corpus: HnswIndex build, search at ef 64 and 128,
+   save_hnsw / load_hnsw (identical results), and Searcher == index.search.
 The kernels' launch counts are zeroed just before each path and read just
 after it.
 
@@ -39,29 +55,50 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import json
+import math
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
 import torch.nn.functional as F
 
 import islands_tpu_torch
+from islands_tpu_torch import ops
+from islands_tpu_torch.benches import gather_bench
 from islands_tpu_torch.core.build import build_index_with_sketch
-from islands_tpu_torch.core.config import DistanceMetric, LeannConfig, PQConfig
+from islands_tpu_torch.core.config import (
+    DistanceMetric,
+    HnswConfig,
+    LeannConfig,
+    PQConfig,
+    SearchConfig,
+)
 from islands_tpu_torch.core.embedding import InMemoryEmbeddingProvider
+from islands_tpu_torch.core.hnsw import HnswIndex
 from islands_tpu_torch.core.leann import LeannIndex
 from islands_tpu_torch.core.search import StoredSearcher
+from islands_tpu_torch.core.searchapi import Searcher
+from islands_tpu_torch.core.storage import load_hnsw, load_index, save_hnsw, save_index
 from islands_tpu_torch.ops import _cuda, merge
+from islands_tpu_torch.ops import proj as proj_ops
 from islands_tpu_torch.ops.adc import (
     adc_scan,
     adc_scan_reference,
     gated_adc_reference,
     gated_adc_sums,
 )
-from islands_tpu_torch.ops.distance import brute_force_topk, rowwise_distance
+from islands_tpu_torch.ops.distance import brute_force_topk, prep_corpus, rowwise_distance
+from islands_tpu_torch.ops.gather import row_gather, row_gather_reference
 from islands_tpu_torch.ops.hop_merge import hop_merge, hop_merge_reference
+from islands_tpu_torch.ops.pairwise import (
+    pairwise_l2,
+    pairwise_l2_reference,
+    pairwise_neg_dot,
+    pairwise_neg_dot_reference,
+)
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and the
 # non-tensor-core float32 rate, used for a kernel's bound. A shared-memory
@@ -71,7 +108,8 @@ F32_OPS_PER_S = 67e12
 SMEM_LOOKUPS_PER_SM_CLOCK = 32
 
 # Each kernel: its wrapper (whose `launches` counts launches), source, the
-# TPU kernel it replaces and the CUDA kernel's name in the profiler.
+# TPU kernel it replaces and the CUDA kernel's name in the profiler. K4a and
+# K4b are two modes of one source.
 KERNELS = {
     "hop_merge": (hop_merge, "islands_tpu_torch/csrc/hop_merge.cu",
                   "islands_tpu/ops/pallas_kernels.py:412", "hop_merge_kernel"),
@@ -79,7 +117,14 @@ KERNELS = {
                   "islands_tpu/ops/pallas_kernels.py:135", "gated_adc_kernel"),
     "adc_scan": (adc_scan, "islands_tpu_torch/csrc/adc_scan.cu",
                  "islands_tpu/ops/pallas_kernels.py:52", "adc_scan_kernel"),
+    "pairwise_l2": (pairwise_l2, "islands_tpu_torch/csrc/pairwise.cu",
+                    "islands_tpu/ops/pallas_kernels.py:248", "pairwise_kernel<0>"),
+    "pairwise_neg_dot": (pairwise_neg_dot, "islands_tpu_torch/csrc/pairwise.cu",
+                         "islands_tpu/ops/pallas_kernels.py:262", "pairwise_kernel<2>"),
+    "row_gather": (row_gather, "islands_tpu_torch/csrc/row_gather.cu",
+                   "benches/gather_bench.py:71", "row_gather_kernel"),
 }
+SOURCES = sorted({pathlib.Path(src).stem for _, src, _, _ in KERNELS.values()})
 
 # bench.py's five primary rungs: (ef, promote, max_iters, expand_width,
 # final_rescore).
@@ -87,6 +132,8 @@ RUNGS = [(32, 8, 12, 2, 64), (32, 16, 12, 2, 64), (32, 24, 12, 2, 64),
          (32, 48, 10, 2, 0), (32, 64, 10, 4, 0)]
 HEADLINE = (32, 16, 12, 2, 64)
 DIM, QUERIES = 128, 4096  # bench.py's width and query batch
+C2_CONFIG = LeannConfig(metric=DistanceMetric.EUCLIDEAN, wave_size=4096, sketch_dims=48,
+                        ef_construction=64, reverse_slack=20)  # bench.py's
 QPS_PASSES = 5
 MIN_HEADLINE_RECALL = 0.90
 
@@ -101,6 +148,29 @@ C4_RUNGS = [(128, 16, 2, 16, 64), (128, 14, 2, 24, 64), (128, 18, 2, 16, 64),
 C4_ROUTING = 65536
 PQ_SCAN_QUERIES, PQ_SCAN_RERANKS = 512, (128, 256)
 AB_QUERIES = 512  # queries for the grouped/einsum and fused/inline checks
+
+# K4's shapes (B, N, d): brute_force_topk's chunks at configs 2 and 4, the
+# reference's own timing shape (pallas_kernels.py:313-315), the reference
+# vector-ops bench's widths (benches/vector_ops_bench.py:36-53), ragged and
+# empty edges. The first two are timed.
+PAIRWISE_SHAPES = [(4096, 65536, 128), (4096, 65536, 768), (512, 20000, 128),
+                   (1000, 10000, 32), (1000, 10000, 512), (1000, 10000, 1024),
+                   (5, 7, 8), (33, 70, 7), (0, 7, 16), (5, 0, 16)]
+PAIRWISE_TIMED = PAIRWISE_SHAPES[:2]
+PAIRWISE_MODES = ("l2", "l2_squared", "neg_dot")
+# K5's shapes: the gather bench's corpus and gather sizes, and a ragged K.
+GATHER_N, GATHER_D, GATHER_KS, GATHER_TIMED = 1_000_000, 128, (131072, 1048576, 1000), (131072,
+                                                                                         1048576)
+
+# Phase 6: the prefix built before one 65,536-row re-index, the searches
+# run on the loaded and the in-memory index, and phase 3's headline knobs.
+LIFE_REINDEX = 65536
+LIFE_SEARCHES = [("none/ef64", dict(gate="none", ef=64)),
+                 ("none/ef128", dict(gate="none", ef=128)),
+                 ("sketch/ef32/p16/i12/x2", dict(gate="sketch", ef=32, promote_width=16,
+                                                 max_iters=12, expand_width=2))]
+HNSW_EFS = (64, 128)
+SEARCHER_QUERIES = 64
 
 # smallest_k's row shapes on the paths, (rows, width, k): _pop over the
 # config-2 and config-4 queues, the build's pools and [W, W] intra-wave
@@ -376,6 +446,167 @@ def phase_smallest_k() -> list:
     return out
 
 
+def pairwise_bound_ms(b, n, d) -> tuple[float, str]:
+    """K4's least time: 2*B*N*d flops at the f32 rate against q, x and the
+    output over HBM; the larger, and which."""
+    ops_ms = 2 * b * n * d / F32_OPS_PER_S * 1e3
+    bytes_ms = (b * d + n * d + b * n) * 4 / HBM_BYTES_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def assert_pairwise_close(got, want, q, x, mode, what) -> float:
+    """K4 against its plain version: the two sum in different orders, so the
+    squared form is held within 1e-5 * (|q|^2 + |x|^2), the sqrt form within
+    the square root of that bound (|sqrt(a) - sqrt(b)| <= sqrt(|a - b|): no
+    relative error near 0), neg-dot within 1e-5 * |q| * |x|; l2 outputs must
+    be >= 0. Returns the largest |got - want|."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if got.numel() == 0:
+        return 0.0
+    qn = torch.sum(q.double() * q.double(), dim=1).float()
+    xn = torch.sum(x.double() * x.double(), dim=1).float()
+    if mode == "neg_dot":
+        tol = 1e-5 * torch.sqrt(qn)[:, None] * torch.sqrt(xn)[None, :]
+    else:
+        tol = 1e-5 * (qn[:, None] + xn[None, :])
+        if mode == "l2":
+            tol = torch.sqrt(tol)
+        if not bool((got >= 0).all()):
+            raise AssertionError(f"{what}: negative distances")
+    err = (got - want).abs()
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"{what}: off its plain version beyond the bound "
+                             f"(max |diff| {float(err.max()):.3e})")
+    return float(err.max())
+
+
+def _pairwise_call(mode, kernel):
+    if mode == "neg_dot":
+        return ((lambda q, x: pairwise_neg_dot(q, x, use_kernel=True)) if kernel
+                else pairwise_neg_dot_reference)
+    sq = mode == "l2_squared"
+    return ((lambda q, x: pairwise_l2(q, x, squared=sq, use_kernel=True)) if kernel
+            else (lambda q, x: pairwise_l2_reference(q, x, squared=sq)))
+
+
+def pairwise_inputs(gen, b, n, d):
+    """q [B, d], x [N, d] ~ N(0, 1) on the card, x's first rows equal to q's
+    (squared distances that cancel to about 0)."""
+    q = torch.randn((b, d), generator=gen, device="cuda")
+    x = torch.randn((n, d), generator=gen, device="cuda")
+    dup = min(b, n, 64)
+    x[:dup] = q[:dup]
+    return q, x
+
+
+def phase_pairwise() -> tuple[dict, dict]:
+    """K4a (l2, l2 squared) and K4b (neg dot) against their plain versions at
+    PAIRWISE_SHAPES, in all three modes. Then times at PAIRWISE_TIMED beside bound,
+    plain version and library call (torch.cdist for l2, torch.mm for the
+    dot, TF32 off as ops/distance.py sets it)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    errs = {m: 0.0 for m in PAIRWISE_MODES}
+    for b, n, d in PAIRWISE_SHAPES:
+        q, x = pairwise_inputs(gen, b, n, d)
+        for mode in PAIRWISE_MODES:
+            got = _pairwise_call(mode, True)(q, x)
+            want = _pairwise_call(mode, False)(q, x)
+            torch.cuda.synchronize()
+            errs[mode] = max(errs[mode], assert_pairwise_close(
+                got, want, q, x, mode, f"pairwise {mode} at B={b} N={n} d={d}"))
+            del got, want
+        log(f"  pairwise l2 / l2 squared / neg dot within bound at B={b} N={n} d={d}")
+        del q, x
+
+    timings = []
+    for b, n, d in PAIRWISE_TIMED:
+        q, x = pairwise_inputs(gen, b, n, d)
+        bound = pairwise_bound_ms(b, n, d)
+        for mode, kname in (("l2", "pairwise_kernel<0>"), ("l2_squared", "pairwise_kernel<1>"),
+                            ("neg_dot", "pairwise_kernel<2>")):
+            fn, plain = _pairwise_call(mode, True), _pairwise_call(mode, False)
+            event_ms = time_ms(lambda: fn(q, x), 10)
+            ms = kernel_device_ms(lambda: fn(q, x), kname, 10)
+            plain_ms = time_ms(lambda: plain(q, x), 5)
+            library, lib_name = {
+                "l2": (lambda: torch.cdist(q, x, compute_mode="use_mm_for_euclid_dist"),
+                       "torch.cdist(compute_mode='use_mm_for_euclid_dist')"),
+                "l2_squared": (None, None),
+                "neg_dot": (lambda: torch.mm(q, x.T), "torch.mm(q, x.T) (the dot, unnegated)"),
+            }[mode]
+            library_ms = None
+            if library is not None:
+                lib_out = library()
+                want = plain(q, x)
+                if mode == "neg_dot":
+                    lib_out = -lib_out
+                assert_pairwise_close(lib_out, want, q, x, mode, f"library {lib_name}")
+                del lib_out, want
+                library_ms = time_ms(library, 10)
+            log(f"  pairwise {mode} B={b} N={n} d={d}: kernel {ms:.4f} ms on the device "
+                f"({event_ms:.4f} ms per wrapper call by CUDA events), plain {plain_ms:.4f} "
+                f"ms, bound {bound[0]:.4f} ms ({bound[1]}), library "
+                + (f"{lib_name} {library_ms:.4f} ms" if library_ms is not None else "none"))
+            timings.append(dict(b=b, n=n, d=d, mode=mode, ms=ms, event_ms=event_ms,
+                                plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                                library_ms=library_ms, library=lib_name))
+        del q, x
+    head = {m: next(t for t in timings if t["mode"] == m) for m in PAIRWISE_MODES}
+
+    def fig(mode, others):
+        t = head[mode]
+        return dict(max_abs_err=max(errs[m] for m in (mode, *others)), ms=t["ms"],
+                    event_ms=t["event_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                    bound_by=t["bound_by"], library_ms=t["library_ms"],
+                    library=t["library"], shape=[t["b"], t["n"], t["d"]],
+                    timings=[x for x in timings if x["mode"] in (mode, *others)])
+
+    return fig("l2", ("l2_squared",)), fig("neg_dot", ())
+
+
+def row_gather_bound_ms(k, d) -> tuple[float, str]:
+    """K5's least time: K rows read and written and the ids read, over HBM."""
+    return (2 * k * d * 4 + 4 * k) / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def phase_row_gather() -> dict:
+    """K5 against its plain version bit for bit at the gather bench's corpus
+    (N = 1,000,000, D = 128) and K in GATHER_KS, ids past both ends
+    included; times at GATHER_TIMED beside bound, plain version and
+    torch.index_select."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((GATHER_N, GATHER_D), generator=gen, device="cuda")
+    max_err = 0.0
+    for k in GATHER_KS:
+        ids = torch.randint(-5, GATHER_N + 5, (k,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        got, want = row_gather(x, ids), row_gather_reference(x, ids)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"row_gather differs from its plain version at K={k}")
+        max_err = max(max_err, float((got - want).abs().max()))
+        log(f"  row_gather == plain version at N={GATHER_N} D={GATHER_D} K={k}")
+    timings = []
+    for k in GATHER_TIMED:
+        ids = torch.randint(0, GATHER_N, (k,), generator=gen, device="cuda", dtype=torch.int32)
+        bound = row_gather_bound_ms(k, GATHER_D)
+        event_ms = time_ms(lambda: row_gather(x, ids), 50)
+        ms = kernel_device_ms(lambda: row_gather(x, ids), "row_gather_kernel", 50)
+        plain_ms = time_ms(lambda: row_gather_reference(x, ids), 50)
+        library_ms = time_ms(lambda: torch.index_select(x, 0, ids), 50)
+        log(f"  row_gather N={GATHER_N} D={GATHER_D} K={k}: kernel {ms:.4f} ms on the device "
+            f"({event_ms:.4f} ms per wrapper call by CUDA events), plain {plain_ms:.4f} ms, "
+            f"bound {bound[0]:.4f} ms (bytes), library torch.index_select {library_ms:.4f} ms")
+        timings.append(dict(n=GATHER_N, d=GATHER_D, k=k, ms=ms, event_ms=event_ms,
+                            plain_ms=plain_ms, bound_ms=bound[0], library_ms=library_ms))
+    t = timings[0]
+    return dict(max_abs_err=max_err, ms=t["ms"], event_ms=t["event_ms"], plain_ms=t["plain_ms"],
+                bound_ms=t["bound_ms"], bound_by="bytes", library_ms=t["library_ms"],
+                library="torch.index_select(x, 0, ids)", shape=[GATHER_N, GATHER_D, t["k"]],
+                timings=timings)
+
+
 def make_corpus(n, dim, n_queries, seed=0):
     """bench.py's workload: overlapping Gaussian mixture (centres ~ N(0, I),
     sigma 0.8), drawn on the card from a seeded generator."""
@@ -420,11 +651,12 @@ def profile_pass(fn, top=10) -> dict:
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, top=rows)
 
 
-def phase_main_path(n) -> dict:
+def phase_main_path(n) -> tuple[dict, tuple]:
+    """Config 2; also returns its corpus, queries and ground truth, which
+    phases 5-7 reuse."""
     dim, n_queries = DIM, QUERIES
-    metric = DistanceMetric.EUCLIDEAN
-    cfg = LeannConfig(metric=metric, wave_size=4096, sketch_dims=48,
-                              ef_construction=64, reverse_slack=20)
+    metric = C2_CONFIG.metric
+    cfg = C2_CONFIG
     x, queries = make_corpus(n, dim, n_queries)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -491,8 +723,8 @@ def phase_main_path(n) -> dict:
                 index_bytes_per_vector=(graph.storage_bytes()
                                         + 4 * sketch.node_sketch.numel()
                                         + 4 * sketch.w.numel() + 4) / n,
-                peak_device_gb=peak_gb, rungs=rungs, headline_profile=profile,
-                launches=launches)
+                peak_device_gb=peak_gb, rungs=rungs, headline_recall=head["recall"],
+                headline_profile=profile, launches=launches), (x, queries, true_ids)
 
 
 def timed_qps(fn, n_queries) -> list:
@@ -588,8 +820,8 @@ def phase_config4() -> dict:
             f"QPS median {qps[len(qps) // 2]:.1f}, min {qps[0]:.1f}, max {qps[-1]:.1f}")
     launches = read_launches()
     log(f"  kernel launches on the config-4 path: {launches}")
-    for name, count in launches.items():
-        if count <= 0:
+    for name in ("hop_merge", "gated_adc", "adc_scan"):
+        if launches[name] <= 0:
             raise AssertionError(f"the config-4 path never launched the {name} kernel")
 
     head = (reported["ef"], reported["max_iters"], reported["expand_width"],
@@ -614,18 +846,216 @@ def phase_config4() -> dict:
                 launches=launches)
 
 
-def build_kernels() -> None:
-    """nvcc every kernel at once (one process each) and log what ptxas says
-    of its registers and shared memory."""
+def phase_gather_bench() -> dict:
+    """The port of benches/gather_bench.py at its own sizes (K5's path)."""
+    zero_launches()
+    out = gather_bench.main(GATHER_N, GATHER_D)
+    launches = read_launches()
+    if launches["row_gather"] <= 0:
+        raise AssertionError("the gather bench never launched the row_gather kernel")
+    log(f"  kernel launches on the gather-bench path: {launches}")
+    return dict(out, launches=launches)
+
+
+def phase_ops_api(x, queries, true_ids) -> dict:
+    """K4's path: exact top-10 of phase 3's queries over its corpus through
+    the ops API with the kernel (pairwise_l2 for euclidean, pairwise_neg_dot
+    for the dot product), held to brute_force_topk's: recall@10 >= 0.999
+    (near-ties may order differently, the sums running in other orders)."""
+    zero_launches()
+    out = {}
+    for name, dist, metric in (
+            ("l2", lambda a, b: ops.pairwise_l2(a, b, use_kernel=True),
+             DistanceMetric.EUCLIDEAN),
+            ("neg_dot", lambda a, b: ops.pairwise_neg_dot(a, b, use_kernel=True),
+             DistanceMetric.DOT_PRODUCT)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d, ids = brute_force_topk(queries, x, 10, metric, batch=65536, dist_fn=dist)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        want = true_ids if metric == DistanceMetric.EUCLIDEAN else brute_force_topk(
+            queries, x, 10, metric, batch=65536)[1]
+        rec = recall_at_10(ids, want)
+        same = float(torch.all(ids == want, dim=1).float().mean())
+        if rec < 0.999:
+            raise AssertionError(f"ops API {name} top-10 recall {rec:.5f} < 0.999")
+        log(f"  ops API {name} top-10 over {x.shape[0]}x{x.shape[1]}: {secs:.3f} s, recall@10 "
+            f"{rec:.5f} against brute_force_topk, identical rows {same:.5f}")
+        out[name] = dict(seconds=secs, recall=rec, identical_rows=same)
+    launches = read_launches()
+    for kname in ("pairwise_l2", "pairwise_neg_dot"):
+        if launches[kname] <= 0:
+            raise AssertionError(f"the ops-API path never launched the {kname} kernel")
+    log(f"  kernel launches on the ops-API path: {launches}")
+    return dict(out, launches=launches)
+
+
+def qps_line(qps) -> str:
+    return (f"QPS median {qps[len(qps) // 2]:.1f}, min {qps[0]:.1f}, max {qps[-1]:.1f} "
+            f"(spread {100 * (qps[-1] / qps[0] - 1):.1f}%)")
+
+
+def phase_lifecycle(x, queries, true_ids, metric, cfg, headline_recall) -> dict:
+    """Build on the first N - 65,536 rows, extend to N, save (with and
+    without the sketch), load, search loaded and in-memory alike."""
+    n, n_queries = x.shape[0], queries.shape[0]
+    n_prefix = n - LIFE_REINDEX
+    provider = InMemoryEmbeddingProvider(x)
+    zero_launches()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
-        outs = dict(zip(KERNELS, pool.map(_cuda.build, KERNELS)))
-    log(f"  nvcc built {', '.join(KERNELS)} in {time.perf_counter() - t0:.2f} s")
+    idx = LeannIndex(cfg).build_from_embeddings(x[:n_prefix])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx.extend(provider)
+    torch.cuda.synchronize()
+    extend_s = time.perf_counter() - t0
+    log(f"  build {n_prefix}x{x.shape[1]}: {build_s:.3f} s; extend by {LIFE_REINDEX} to {n}: "
+        f"{extend_s:.3f} s = {LIFE_REINDEX / extend_s:.1f} vectors/s")
+    if idx.num_nodes != n:
+        raise AssertionError(f"extended index holds {idx.num_nodes} nodes, not {n}")
+    idx.graph.validate()
+
+    scratch = pathlib.Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        t0 = time.perf_counter()
+        full_bytes = save_index(idx, pathlib.Path(tmp) / "full.leann")
+        save_s = time.perf_counter() - t0
+        parity_bytes = save_index(idx, pathlib.Path(tmp) / "parity.leann", persist_sketch=False)
+        t0 = time.perf_counter()
+        loaded = load_index(pathlib.Path(tmp) / "full.leann")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        parity = load_index(pathlib.Path(tmp) / "parity.leann")
+    log(f"  save_index {save_s:.3f} s, load_index {load_s:.3f} s; file bytes/vector "
+        f"{full_bytes / n:.2f} with the sketch, {parity_bytes / n:.2f} without; "
+        f"storage_bytes()/N {idx.storage_bytes() / n:.2f}")
+    # Storage-parity mode: the sketch rederived from the seed is the saved one.
+    sk = proj_ops.build_sketch_index(prep_corpus(x, metric), parity.graph.neighbors,
+                                     proj_dims=idx.sketch.proj_dims, seed=cfg.seed)
+    if parity.sketch is not None or not (
+            torch.equal(sk.node_sketch, idx.sketch.node_sketch)
+            and torch.equal(sk.nbr_sketch, idx.sketch.nbr_sketch)
+            and float(sk.scale) == float(idx.sketch.scale)):
+        raise AssertionError("the sketch rederived in storage-parity mode is not the saved one")
+    del parity, sk
+    log("  storage-parity mode: the sketch rederived from the seed equals the saved one")
+
+    searches = []
+    for name, kw in LIFE_SEARCHES:
+        a = loaded.search(queries, k=10, provider=provider, **kw)
+        frac_loaded = loaded.last_recompute_fraction
+        b = idx.search(queries, k=10, provider=provider, **kw)
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            raise AssertionError(f"loaded and in-memory index differ at {name}")
+        err = check_results(f"lifecycle {name}", b[0], b[1], x, queries, metric)
+        rec = recall_at_10(b[1], true_ids)
+        frac = idx.last_recompute_fraction if kw["gate"] == "sketch" else None
+        if kw["gate"] == "sketch" and frac != frac_loaded:
+            raise AssertionError(f"recompute fractions differ at {name}")
+        qps_loaded = timed_qps(lambda: loaded.search(queries, k=10, provider=provider, **kw),
+                               n_queries)
+        qps_mem = timed_qps(lambda: idx.search(queries, k=10, provider=provider, **kw),
+                            n_queries)
+        log(f"  search {name}: recall@10 {rec:.4f}, loaded == in-memory, "
+            + "loaded " + qps_line(qps_loaded) + "; in-memory " + qps_line(qps_mem)
+            + (f"; recompute fraction {frac:.6f}" if frac is not None else ""))
+        searches.append(dict(search=name, **kw, recall=rec, max_abs_dist_err=err,
+                             qps_loaded=qps_loaded[len(qps_loaded) // 2],
+                             qps_loaded_runs=qps_loaded, qps=qps_mem[len(qps_mem) // 2],
+                             qps_runs=qps_mem, recompute_fraction=frac))
+    del loaded
+
+    searcher = StoredSearcher(idx.graph, x, metric, sketch=idx.sketch, routing_size=65536)
+    ef, pw, it, xw, fr = HEADLINE
+    d, ids = searcher.search(queries, k=10, ef=ef, expand_width=xw, gate="sketch",
+                             promote_width=pw, max_iters=it, final_rescore=fr,
+                             hop_merge="fused")
+    check_results("lifecycle StoredSearcher", d, ids, x, queries, metric)
+    stored_rec = recall_at_10(ids, true_ids)
+    log(f"  StoredSearcher over the extended index, headline rung p{pw}/i{it}/x{xw}/fr{fr}: "
+        f"recall@10 {stored_rec:.4f} (phase 3's index: {headline_recall:.4f})")
+    if stored_rec < MIN_HEADLINE_RECALL:
+        raise AssertionError(f"extended index headline recall {stored_rec:.4f} "
+                             f"< {MIN_HEADLINE_RECALL}")
+    launches = read_launches()
+    log(f"  kernel launches on the lifecycle path: {launches}")
+    return dict(n_prefix=n_prefix, n=n, build_seconds=build_s, extend_seconds=extend_s,
+                file_bytes_per_vector=full_bytes / n, parity_file_bytes_per_vector=parity_bytes / n,
+                storage_bytes_per_vector=idx.storage_bytes() / n, save_seconds=save_s,
+                load_seconds=load_s, searches=searches, stored_headline_recall=stored_rec,
+                phase3_headline_recall=headline_recall, launches=launches)
+
+
+def phase_hnsw(x, queries, true_ids, metric) -> dict:
+    """HnswIndex on phase 3's corpus: build, search, save/load, Searcher."""
+    n_queries = queries.shape[0]
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = HnswIndex(HnswConfig(metric=metric, wave_size=4096)).build(x)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    sizes = [index.num_nodes] + [len(layer.ids) for layer in index.layers]
+    log(f"  HNSW build {x.shape[0]}x{x.shape[1]}: {build_s:.3f} s = "
+        f"{x.shape[0] / build_s:.1f} vectors/s; layer sizes {sizes}")
+    index.layer0.validate()
+    results, searches = {}, []
+    for ef in HNSW_EFS:
+        d, ids = index.search(queries, k=10, ef=ef)
+        err = check_results(f"hnsw ef{ef}", d, ids, x, queries, metric)
+        rec = recall_at_10(ids, true_ids)
+        qps = timed_qps(lambda: index.search(queries, k=10, ef=ef), n_queries)
+        log(f"  HNSW ef {ef}: recall@10 {rec:.4f}, " + qps_line(qps))
+        results[ef] = (d, ids)
+        searches.append(dict(ef=ef, recall=rec, max_abs_dist_err=err,
+                             qps=qps[len(qps) // 2], qps_runs=qps,
+                             qps_spread=qps[-1] / qps[0] - 1))
+    scratch = pathlib.Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        nbytes = save_hnsw(index, pathlib.Path(tmp) / "index.hnsw")
+        loaded = load_hnsw(pathlib.Path(tmp) / "index.hnsw")
+    for ef, (d, ids) in results.items():
+        d2, ids2 = loaded.search(queries, k=10, ef=ef)
+        if not (torch.equal(d, d2) and torch.equal(ids, ids2)):
+            raise AssertionError(f"loaded HNSW index differs at ef {ef}")
+    del loaded
+    log(f"  save_hnsw / load_hnsw: {nbytes / x.shape[0]:.2f} file bytes/vector; loaded == "
+        f"in-memory at ef {HNSW_EFS}")
+    sub = queries[:SEARCHER_QUERIES]
+    hits = Searcher(index, SearchConfig(top_k=10, ef=128)).search(sub)
+    d, ids = index.search(sub, k=10, ef=128)
+    want = [[(int(i), float(v)) for v, i in zip(dr.tolist(), ir.tolist())
+             if i >= 0 and math.isfinite(v)]
+            for dr, ir in zip(d.cpu(), ids.cpu())]
+    if [[(h.id, h.distance) for h in row] for row in hits] != want:
+        raise AssertionError("Searcher's hits differ from HnswIndex.search")
+    log(f"  Searcher(top_k=10, ef=128) == HnswIndex.search on {SEARCHER_QUERIES} queries")
+    launches = read_launches()
+    log(f"  kernel launches on the HNSW path: {launches}")
+    return dict(build_seconds=build_s, build_vectors_per_s=x.shape[0] / build_s,
+                layer_sizes=sizes, searches=searches, file_bytes_per_vector=nbytes / x.shape[0],
+                launches=launches)
+
+
+def build_kernels() -> None:
+    """nvcc every source at once (one process each) and log what ptxas says
+    of its kernels' registers and shared memory."""
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        outs = dict(zip(SOURCES, pool.map(_cuda.build, SOURCES)))
+    log(f"  nvcc built {', '.join(SOURCES)} in {time.perf_counter() - t0:.2f} s")
     # Dynamic shared memory per block, as each launcher sizes it at the
     # paths' shapes (ptxas reports static shared memory only).
     smem = {"hop_merge": f"{128 * 12 + 256 * 8} B at E=120, A=64 or 128",
             "gated_adc": f"{16 * 256 * 4} B at S=16, K=256",
-            "adc_scan": f"{4 * 16 * 256 * 4} B at 4 queries per block, S=16, K=256"}
+            "adc_scan": f"{4 * 16 * 256 * 4} B at 4 queries per block, S=16, K=256",
+            "pairwise": "none (the q and x slices and the row norms are static)",
+            "row_gather": "none"}
     for name, out in outs.items():
         for line in out.splitlines():
             if "registers" in line or "smem" in line:
@@ -663,23 +1093,45 @@ def main() -> int:
     log("phase 2: kernels against their plain versions")
     k1 = phase_hop_merge()
     k2, k3 = phase_adc(sms, clock_hz)
+    k4a, k4b = phase_pairwise()
+    k5 = phase_row_gather()
     topk = phase_smallest_k()
+    torch.cuda.empty_cache()
+    log(f"  phases 1-2: {time.perf_counter() - t_start:.1f} s")
 
     log(f"phase 3: config 2 at {args.n}x{DIM}, {QUERIES} queries")
-    config2 = phase_main_path(args.n)
+    config2, (x, queries, true_ids) = phase_main_path(args.n)
     torch.cuda.empty_cache()
     log(f"phase 4: config 4 at {C4_N}x{C4_DIM}, {C4_QUERIES} queries")
     config4 = phase_config4()
+    torch.cuda.empty_cache()
+    log(f"  phases 1-4: {time.perf_counter() - t_start:.1f} s")
+    log(f"phase 5: the gather bench at {GATHER_N}x{GATHER_D}; the ops API over phase 3's corpus")
+    bench = phase_gather_bench()
+    torch.cuda.empty_cache()
+    ops_api = phase_ops_api(x, queries, true_ids)
+    log(f"  phases 1-5: {time.perf_counter() - t_start:.1f} s")
+    metric = C2_CONFIG.metric
+    log(f"phase 6: the index lifecycle at {x.shape[0]}x{DIM}")
+    lifecycle = phase_lifecycle(x, queries, true_ids, metric, C2_CONFIG,
+                                config2["headline_recall"])
+    torch.cuda.empty_cache()
+    log(f"  phases 1-6: {time.perf_counter() - t_start:.1f} s")
+    log(f"phase 7: HNSW at {x.shape[0]}x{DIM}")
+    hnsw = phase_hnsw(x, queries, true_ids, metric)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
+    paths = {"config2": config2, "config4": config4, "ops_api": ops_api,
+             "gather_bench": bench, "lifecycle": lifecycle, "hnsw": hnsw}
     kernels = []
-    for name, fig in (("hop_merge", k1), ("gated_adc", k2), ("adc_scan", k3)):
+    for name, fig in (("hop_merge", k1), ("gated_adc", k2), ("adc_scan", k3),
+                      ("pairwise_l2", k4a), ("pairwise_neg_dot", k4b), ("row_gather", k5)):
         _, source, replaces, _ = KERNELS[name]
-        by_path = {"config2": config2["launches"][name], "config4": config4["launches"][name]}
+        by_path = {path: out["launches"][name] for path, out in paths.items()}
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=sum(by_path.values()), launches_by_path=by_path, **fig))
-    print(json.dumps({"config2": config2, "config4": config4, "smallest_k": topk,
-                      "card": card}), flush=True)
+    print(json.dumps(dict(paths, smallest_k=topk, card=card,
+                          seconds=time.perf_counter() - t_start)), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

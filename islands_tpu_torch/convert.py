@@ -1,10 +1,10 @@
 """Carry islands_tpu state across to the port.
 
-The caller hands over the JAX package's CsrGraph, SketchIndex and PQ fields
-as numpy arrays (`np.asarray(field)`); these functions build the port's
-objects from them, so the port's search can run on the reference's own
-graph, sketch and codebook (k-means++ draws from jax.random, which torch
-cannot redo).
+The caller hands over the JAX package's CsrGraph, SketchIndex, PQ and HNSW
+fields as numpy arrays (`np.asarray(field)`); these functions build the
+port's objects from them, so the port's search can run on the reference's
+own graph, sketch, codebook and layers (k-means++ and the projection draw
+from jax.random, which torch cannot redo).
 """
 
 from __future__ import annotations
@@ -12,8 +12,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from islands_tpu_torch.core.config import LeannConfig, PQConfig
+from islands_tpu_torch.core.config import HnswConfig, LeannConfig, PQConfig
 from islands_tpu_torch.core.csr import CsrGraph
+from islands_tpu_torch.core.hnsw import HnswIndex, HnswLayer
 from islands_tpu_torch.core.leann import LeannIndex
 from islands_tpu_torch.core.pq import PQCodebook, ProductQuantizer
 from islands_tpu_torch.device import resolve_device, to_device
@@ -53,6 +54,24 @@ def pq_from_numpy(centroids, codes, pq_config: PQConfig,
     pq.codebook = PQCodebook(centroids=c)
     pq._dimension = c.shape[0] * c.shape[2]
     return pq, to_device(np.asarray(codes).astype(np.int64), dev, pq.code_dtype)
+
+
+def hnsw_from_numpy(config: HnswConfig, x, levels, layer0: dict, layers: list,
+                    device=None) -> HnswIndex:
+    """A port HnswIndex assembled from the reference's state as numpy
+    arrays: `x` its stored prepped vectors [N, d], `levels` [N], `layer0`
+    graph_from_numpy's arguments, `layers` one (ids, neighbors) pair per
+    upper layer, layer 1 first."""
+    dev = resolve_device(device)
+    idx = HnswIndex(config, device=dev)
+    idx.x = to_device(x, dev, torch.float32)
+    idx.dimension = int(idx.x.shape[1])
+    idx.levels = np.asarray(levels, dtype=np.int32)
+    idx.layer0 = graph_from_numpy(**layer0, device=dev)
+    idx.entry_point, idx.max_level = idx.layer0.entry_point, idx.layer0.max_level
+    idx.layers = [HnswLayer(np.asarray(ids, dtype=np.int32), to_device(nbrs, dev, torch.int32),
+                            idx.x) for ids, nbrs in layers]
+    return idx
 
 
 def leann_from_numpy(config: LeannConfig, dimension: int, graph: dict, pq: dict | None = None,

@@ -16,6 +16,10 @@ nodes `nbr_sketch` is ~4 GB). Its `mode="drop"` scatters become masked
 index writes: out-of-range targets are filtered out before `index_put_`.
 Torch indexes with int64, so the reference's int32-overflow fallback for
 large flat scatters is not needed. `refine_passes > 0` is not ported yet.
+
+`extend_graph` appends nodes to a built graph with the same waves, on the
+exact path (no sketch), the incremental re-index of LeannIndex.extend and
+HnswIndex.extend.
 """
 
 from __future__ import annotations
@@ -25,7 +29,12 @@ import torch
 
 from islands_tpu_torch.core.config import DistanceMetric, LeannConfig
 from islands_tpu_torch.core.csr import SENTINEL, CsrGraph
-from islands_tpu_torch.core.search import batched_search, batched_sketch_search, route_entries
+from islands_tpu_torch.core.search import (
+    batched_search,
+    batched_sketch_search,
+    make_stored_scorer,
+    route_entries,
+)
 from islands_tpu_torch.device import resolve_device, to_device
 from islands_tpu_torch.ops import distance as dist_ops
 from islands_tpu_torch.ops import proj as proj_ops
@@ -254,7 +263,7 @@ def wave_body(neighbors, degrees, nbr_sketch, s: int, entry: int, x_prepped,
             g_dists, g_ids = pool_d, pool_ids
     else:
         g_dists, g_ids = batched_search(
-            q, x_prepped, neighbors, entry, metric=metric, ef=efc,
+            q, x_prepped, neighbors, entry, scorer=make_stored_scorer(metric), ef=efc,
             expand_width=config.expand_width, max_iters=max_iters)
 
     # 2. intra-wave brute-force candidates
@@ -451,3 +460,40 @@ def build_index_with_sketch(x, config: LeannConfig | None = None, levels=None,
             sketch_index = proj_ops.build_sketch_index(
                 x_prepped, graph.neighbors, proj_dims=pdims, seed=config.seed, w=w)
     return graph, sketch_index
+
+
+def extend_graph(neighbors0: torch.Tensor, degrees0: torch.Tensor,
+                 x_all_prepped: torch.Tensor, n_old: int, config: LeannConfig,
+                 entry_point: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Append nodes [n_old, n) to a built graph by insertion waves over the
+    FULL prepped corpus x_all_prepped [n, d] (old + new), searching from
+    `entry_point` on the exact path. -> (neighbors [n, m0], degrees [n]).
+
+    The waves are the reference's: width min(wave_size, _bucket_size(n_new))
+    and its max_iters, which shape the graph. The reference also pads the
+    graph and corpus to _bucket_size(n) so that its compiled wave step is
+    reused across sizes; padded rows never insert, are never searched and
+    stay at degree 0, so the port pads the corpus by one wave only (the
+    last wave's slice) and the graph not at all, with equal results."""
+    config.validate()
+    n = int(x_all_prepped.shape[0])
+    m0 = config.m0
+    if n - n_old <= 0:
+        return neighbors0[:, :m0], degrees0
+    dev = x_all_prepped.device
+    bw = m0 + config.reverse_slack
+    wave = min(config.wave_size, _bucket_size(n - n_old))
+    max_iters = 4 * max(config.ef_construction // config.expand_width, 1) + 16
+
+    neighbors = torch.full((n, bw), SENTINEL, dtype=torch.int32, device=dev)
+    neighbors[:n_old, :m0] = neighbors0[:, :m0].to(dev)
+    degrees = torch.zeros((n,), dtype=torch.int32, device=dev)
+    degrees[:n_old] = degrees0.to(dev)
+    x_padded = torch.nn.functional.pad(x_all_prepped.float(), (0, 0, 0, wave))
+    s = n_old
+    while s < n:
+        wave_body(neighbors, degrees, None, s, int(entry_point), x_padded, n, None,
+                  config=config, wave=wave, buffer_width=bw, max_iters=max_iters)
+        s += wave
+    _final_sweep(neighbors, degrees, None, x_padded, m0, config.metric, config.diversify)
+    return neighbors[:, :m0].contiguous(), degrees

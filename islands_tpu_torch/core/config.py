@@ -1,8 +1,10 @@
 """Configuration types for the LEANN-style index.
 
 Port of islands_tpu/core/config.py: `DistanceMetric`, `PruningStrategy`,
-`LeannConfig` and `PQConfig` with the same fields, defaults, presets and
-`validate()`. The HNSW and search configs come with the slices that use them.
+`LeannConfig`, `HnswConfig`, `PQConfig` and `SearchConfig` with the same
+fields in the same order, defaults, presets and `validate()` (storage
+writes `dataclasses.asdict(config)`, so the order is part of the file
+format), and `distance_to_similarity`.
 """
 
 from __future__ import annotations
@@ -114,6 +116,55 @@ class LeannConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class HnswConfig:
+    """Multi-layer HNSW configuration: m links per upper-layer node, m0 at
+    layer 0, geometric levels with factor `ml`; the batched build knobs as in
+    LeannConfig."""
+
+    m: int = 16
+    m0: int = 32
+    ef_construction: int = 200
+    ml: float = 1.0 / math.log(16.0)
+    max_layers: int = 16
+    metric: DistanceMetric = DistanceMetric.COSINE
+    wave_size: int = 1024
+    expand_width: int = 4
+    reverse_slack: int = 32
+    intra_wave_k: int = 16
+    seed: int = 0
+
+    @staticmethod
+    def fast() -> "HnswConfig":
+        return HnswConfig(m=8, m0=16, ef_construction=100,
+                          ml=1.0 / math.log(8.0), reverse_slack=16, intra_wave_k=8)
+
+    @staticmethod
+    def accurate() -> "HnswConfig":
+        return HnswConfig(m=32, m0=64, ef_construction=400,
+                          ml=1.0 / math.log(32.0), reverse_slack=64, intra_wave_k=32)
+
+    def validate(self) -> None:
+        if self.m <= 0:
+            raise ConfigError("m must be > 0")
+        if self.m0 < self.m:
+            raise ConfigError("m0 must be >= m")
+        if self.ef_construction < self.m:
+            raise ConfigError("ef_construction must be >= m")
+        if self.max_layers <= 0:
+            raise ConfigError("max_layers must be > 0")
+
+    def to_leann(self, layer: int) -> LeannConfig:
+        """Per-layer construction parameters: m0 links at layer 0, m above."""
+        m_l = self.m0 if layer == 0 else self.m
+        return LeannConfig(
+            m=max(m_l // 2, 1), m0=m_l, ef_construction=max(self.ef_construction, m_l),
+            ml=self.ml, max_layers=1, metric=self.metric, high_degree_pruning=False,
+            wave_size=self.wave_size, expand_width=self.expand_width,
+            reverse_slack=self.reverse_slack, intra_wave_k=min(self.intra_wave_k, m_l),
+            seed=self.seed + layer)
+
+
+@dataclasses.dataclass(frozen=True)
 class PQConfig:
     """Product quantization configuration: `num_subquantizers` subspaces of
     `num_centroids` centroids each, trained by k-means for
@@ -142,3 +193,34 @@ class PQConfig:
         if self.num_centroids <= 256:
             return self.num_subquantizers
         return self.num_subquantizers * 2
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchConfig:
+    """Search-time configuration of the search API (core/searchapi.py):
+    `promote_width` and `max_iters` are passed on to indexes whose search
+    takes them; None keeps the index's defaults."""
+
+    top_k: int = 10
+    ef: int = 100
+    include_vectors: bool = False
+    include_metadata: bool = True
+    min_similarity: float | None = None
+    rerank_ratio: float = 0.1
+    promote_width: int | None = None
+    max_iters: int | None = None
+
+    def validate(self) -> None:
+        if self.top_k <= 0:
+            raise ConfigError("top_k must be > 0")
+        if self.ef < self.top_k:
+            raise ConfigError("ef must be >= top_k")
+        if self.promote_width is not None and self.promote_width <= 0:
+            raise ConfigError("promote_width must be > 0 when set")
+        if self.max_iters is not None and self.max_iters <= 0:
+            raise ConfigError("max_iters must be > 0 when set")
+
+
+def distance_to_similarity(distance: float) -> float:
+    """similarity = 1 / (1 + distance)."""
+    return 1.0 / (1.0 + distance)

@@ -4,11 +4,14 @@ Port of islands_tpu/core/leann.py. Build a proximity graph from an embedding
 provider (or an [n, d] tensor), train PQ on the same vectors, drop the
 embeddings, and answer queries by recomputing embeddings through the
 provider:
+- `search`: the recompute search, either every unpruned neighbour of a hop
+  scored exactly (gate "none", with the configured pruning strategy) or the
+  sketch gate (only the promoted candidates are recomputed);
 - `search_two_level`: PQ-ADC gated beam search (core/search.py
   `batched_two_level_search`; kernels K2 and, with hop_merge="fused", K1);
 - `search_pq_scan`: a full ADC scan (kernel K3), then an exact rerank.
-The plain recompute search `search` (the recompute gate with pruning) and
-`extend` are not ported yet and raise NotImplementedError.
+`extend` appends items by insertion waves (build.extend_graph), the
+incremental re-index of a repository sync.
 
 Runs on CUDA unless `device="cpu"`; results are tensors on that device.
 """
@@ -18,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from islands_tpu_torch.core.build import build_index_with_sketch
+from islands_tpu_torch.core.build import build_index_with_sketch, extend_graph, sample_levels
 from islands_tpu_torch.core.config import LeannConfig, PQConfig
 from islands_tpu_torch.core.csr import CsrGraph
 from islands_tpu_torch.core.embedding import EmbeddingProvider, materialize_embeddings
@@ -30,12 +33,17 @@ from islands_tpu_torch.core.pq import (
     pq_scan,
 )
 from islands_tpu_torch.core.search import (
+    batched_search,
+    batched_sketch_gated_query,
     batched_two_level_search,
+    default_max_iters,
+    make_prune_fn,
     make_recompute_scorer,
     route_entries_embed,
 )
 from islands_tpu_torch.device import resolve_device, to_device
 from islands_tpu_torch.ops import distance as dist_ops
+from islands_tpu_torch.ops import proj as proj_ops
 from islands_tpu_torch.ops.merge import smallest_k
 
 
@@ -119,9 +127,46 @@ class LeannIndex:
         if with_pq is not None:
             self._train_pq(x, with_pq)
 
-    def extend(self, provider: EmbeddingProvider, num_total: int | None = None):
-        raise NotImplementedError(
-            "LeannIndex.extend (build.extend_graph) is not ported yet; see ROADMAP.md")
+    def extend(self, provider: EmbeddingProvider,
+               num_total: int | None = None) -> "LeannIndex":
+        """Append items [num_nodes, num_total) from `provider`, which must
+        cover ALL items: every embedding is recomputed for the append and
+        dropped after. New levels draw from seed + n_old; the sketch (same
+        projection, scale refit over the whole corpus) and the PQ codes are
+        rederived for all items."""
+        n_total = num_total if num_total is not None else provider.num_items
+        graph = self._require_graph()
+        n_old = graph.num_nodes
+        if n_total <= n_old:
+            return self
+        if n_old == 0:
+            return self.build(provider, n_total)
+        cfg = self.config
+        x_all = dist_ops.prep_corpus(
+            to_device(materialize_embeddings(provider, n_total), self.device, torch.float32),
+            cfg.metric)
+        neighbors, degrees = extend_graph(graph.neighbors, graph.degrees, x_all, n_old, cfg,
+                                          graph.entry_point)
+        levels = np.concatenate([
+            graph.levels.cpu().numpy(),
+            sample_levels(n_total - n_old, cfg.ml, cfg.max_layers, cfg.seed + n_old)])
+        max_level = int(levels.max())
+        self.graph = CsrGraph(neighbors=neighbors, degrees=degrees,
+                              levels=to_device(levels, self.device),
+                              entry_point=int(np.argmax(levels == max_level)),
+                              max_level=max_level)
+        if self.sketch is not None:
+            # The reference redraws the projection from the seed, which is
+            # the build's own; keeping the sketch's `w` is the same for an
+            # index built here and keeps the projection of one carried over.
+            self.sketch = proj_ops.build_sketch_index(
+                x_all, self.graph.neighbors, proj_dims=self.sketch.proj_dims,
+                seed=cfg.seed, w=self.sketch.w)
+        self._tl_routing = {}
+        self._init_routing()
+        if self.pq is not None:
+            self.pq_codes = self.pq.encode(x_all)
+        return self
 
     def _inline_codes(self) -> torch.Tensor:
         """Inline neighbour-code blocks, rebuilt when the graph or the codes
@@ -164,10 +209,65 @@ class LeannIndex:
 
     # -- search ----------------------------------------------------------------
 
-    def search(self, queries, k: int, provider: EmbeddingProvider, **kwargs):
-        raise NotImplementedError(
-            "LeannIndex.search (the recompute gate with pruning) is not ported yet; "
-            "see ROADMAP.md queue 1 item 8")
+    def search(self, queries, k: int, provider: EmbeddingProvider, ef: int | None = None,
+               expand_width: int | None = None, max_iters: int | None = None,
+               gate: str = "auto", promote_width: int | None = None):
+        """Recompute search: queries [B, d] (or [d]) -> (dists [B, k],
+        ids [B, k]) ascending; unfilled slots (+inf, -1).
+
+        `gate`: "none" scores every unpruned neighbour of each hop through
+        the provider (the configured pruning strategy and prune_ratio decide
+        which); "sketch" ranks each hop's neighbours by their inline sketches
+        and recomputes only the `promote_width` best per hop, and sets
+        `last_recompute_fraction`; "auto" takes the sketch gate when the index
+        has a sketch and `config.sketch_query` is set. `promote_width` and
+        `max_iters` default to the config's `promote_width` and
+        `max_search_iters`, then to the gate's own formula."""
+        graph = self._require_graph()
+        q, single = self._queries(queries)
+        if self.is_empty:
+            b = q.shape[0]
+            d = torch.zeros((b, 0), dtype=torch.float32, device=self.device)
+            ids = torch.zeros((b, 0), dtype=torch.int32, device=self.device)
+            return (d[0], ids[0]) if single else (d, ids)
+        cfg = self.config
+        ef = max(ef if ef is not None else cfg.ef_search, k)
+        expand_width = expand_width or cfg.expand_width
+        if promote_width is None:
+            promote_width = cfg.promote_width
+        if max_iters is None:
+            max_iters = cfg.max_search_iters
+        scorer = make_recompute_scorer(cfg.metric)
+        qp = dist_ops.prep_query(q, cfg.metric)
+        if gate == "auto":
+            gate = "sketch" if (self.sketch is not None and cfg.sketch_query) else "none"
+        if gate == "sketch":
+            if self.sketch is None:
+                raise IndexNotBuilt("no SketchIndex (built with sketch_build=False)")
+            qs = proj_ops.sketch_query(qp, self.sketch.w, self.sketch.scale)
+            promote = promote_width or max(8, min(2 * expand_width * 4, ef))
+            if max_iters is None:
+                max_iters = 8 * max(ef // promote, 1) + 32
+            dists, ids, n_exact = batched_sketch_gated_query(
+                qp, qs, provider.embed, self.sketch.scale, graph.neighbors,
+                self.sketch.nbr_sketch, self.sketch.node_sketch, self._routing,
+                exact_scorer=scorer, metric=cfg.metric, dim=int(qp.shape[1]), ef=ef, k=k,
+                aq_width=max(ef, 64), promote_width=promote, expand_width=expand_width,
+                max_iters=max_iters)
+            self.last_recompute_fraction = (float(n_exact.float().mean())
+                                            / max(self.num_nodes, 1))
+            return (dists[0], ids[0]) if single else (dists, ids)
+        if gate != "none":
+            raise ValueError(f"unknown gate {gate!r}: 'auto', 'sketch' or 'none'")
+        if max_iters is None:
+            max_iters = default_max_iters(ef, expand_width)
+        prune = make_prune_fn(cfg.pruning_strategy, cfg.prune_ratio, ef, seed=cfg.seed)
+        dists, ids = batched_search(qp, provider.embed, graph.neighbors, graph.entry_point,
+                                    graph.degrees, scorer=scorer, ef=ef,
+                                    expand_width=expand_width, max_iters=max_iters,
+                                    prune_fn=prune)
+        dists, ids = dists[:, :k], ids[:, :k]
+        return (dists[0], ids[0]) if single else (dists, ids)
 
     def _queries(self, queries) -> tuple[torch.Tensor, bool]:
         q = to_device(queries, self.device, torch.float32)
@@ -214,14 +314,15 @@ class LeannIndex:
         if max_iters is None:
             max_iters = 8 * max(ef // max(promote_width, 1), 1) + 32
 
-        exact = make_recompute_scorer(provider.embed, cfg.metric)
+        exact = make_recompute_scorer(cfg.metric)
         qp = dist_ops.prep_query(q, cfg.metric)
         entries = graph.entry_point
         if routing_size is not None and routing_size > 0:
             entries = route_entries_embed(q, provider.embed,
                                           self._routing_sample(routing_size), cfg.metric)
         dists, ids, n_exact = batched_two_level_search(
-            qp, self._inline_codes(), self.pq.codebook.centroids, graph.neighbors, entries,
+            qp, provider.embed, self._inline_codes(), self.pq.codebook.centroids,
+            graph.neighbors, entries,
             exact_scorer=exact, approx_scorer=gated_block_scorer_for(cfg.metric, adc_impl),
             prep_fn=gated_prep_for(cfg.metric), ef=ef, aq_width=aq_width,
             promote_width=promote_width, expand_width=expand_width, max_iters=max_iters,
@@ -250,9 +351,9 @@ class LeannIndex:
         d_approx = pq_scan(self.pq, q, self.pq_codes, metric=self.config.metric)
         cand = smallest_k(d_approx, rerank)  # lax.top_k(-d, rerank)
         del d_approx
-        scorer = make_recompute_scorer(provider.embed, self.config.metric)
+        scorer = make_recompute_scorer(self.config.metric)
         qp = dist_ops.prep_query(q, self.config.metric)
-        d_exact = scorer(qp, cand, torch.ones_like(cand, dtype=torch.bool))
+        d_exact = scorer(provider.embed, qp, cand, torch.ones_like(cand, dtype=torch.bool))
         pos = smallest_k(d_exact, k_eff)
         dists = d_exact.gather(1, pos)
         ids = cand.gather(1, pos).to(torch.int32)

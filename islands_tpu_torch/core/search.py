@@ -8,7 +8,8 @@ The search keeps, per query, a fixed-width ascending pool of (distance,
 packed id+expanded code); each hop expands the best `expand_width`
 unexpanded entries, dedups their neighbours against the hop and the pool,
 scores them and merges them in. Four loops:
-- `batched_search`: the exact gate, every discovery scored exactly;
+- `batched_search`: the exact gate, every discovery scored exactly, unless
+  a pruning mask (`make_prune_fn`) drops some before they are scored;
 - `batched_sketch_search`: the build's loop, driven by sketch distances;
 - `batched_sketch_gated_query`: the query loop; sketch distances feed an
   approximate queue (AQ) and only its best `promote_width` entries per hop
@@ -18,14 +19,21 @@ scores them and merges them in. Four loops:
   and exact scores recomputed through an embedding provider.
 In both gated loops `hop_merge="fused"` runs the AQ update as kernel K1
 (ops/hop_merge.py); `"inline"` composes it from ops/merge.py.
+
+Exact scorers are `scorer(ctx, q [B, d], ids [B, E], valid [B, E]) ->
+[B, E]` (+inf where not valid), with the corpus or the embedding function
+in `ctx`: `make_stored_scorer(metric)` over stored prepped embeddings,
+`make_recompute_scorer(metric)` over a provider's `embed`.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-from islands_tpu_torch.core.config import DistanceMetric
+from islands_tpu_torch.core.config import DistanceMetric, PruningStrategy
 from islands_tpu_torch.core.csr import SENTINEL, CsrGraph
 from islands_tpu_torch.device import resolve_device, to_device
 from islands_tpu_torch.ops import distance as dist_ops
@@ -48,6 +56,27 @@ def stored_scorer(x: torch.Tensor, q: torch.Tensor, ids: torch.Tensor,
     rows = x[torch.clamp(ids, 0, x.shape[0] - 1).long()]
     d = dist_ops.rowwise_distance(q, rows, metric)
     return torch.where(valid, d, _INF)
+
+
+def make_stored_scorer(metric: DistanceMetric):
+    """Scorer over stored prepped embeddings: ctx = the corpus [N, d]."""
+    return functools.partial(stored_scorer, metric=metric)
+
+
+def recompute_scorer(embed, q: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
+                     metric: DistanceMetric) -> torch.Tensor:
+    """Exact distances of embeddings recomputed on the fly through a
+    provider's `embed(ids [B, E]) -> [B, E, d]` (the ctx); invalid ids are
+    fetched as id 0 and masked to +inf."""
+    rows = embed(torch.where(valid, ids, 0).to(torch.int32))
+    rows = dist_ops.prep_corpus(rows, metric)
+    d = dist_ops.rowwise_distance(q, rows, metric)
+    return torch.where(valid, d, _INF)
+
+
+def make_recompute_scorer(metric: DistanceMetric):
+    """Scorer that recomputes embeddings: ctx = a provider's `embed`."""
+    return functools.partial(recompute_scorer, metric=metric)
 
 
 def _run_hops(cond, body, state: tuple, max_iters: int, static_iters: bool):
@@ -80,6 +109,74 @@ def _not_in_set(ids: torch.Tensor, member_ids: torch.Tensor) -> torch.Tensor:
     scatter-free visited test: pool eviction is monotone, so membership in
     the current pool is enough)."""
     return ~torch.any(ids[:, :, None] == member_ids[:, None, :], dim=2)
+
+
+def _mul32(a, c: int):
+    """(a * c) mod 2^32 for a in [0, 2^32) (int64 tensor or int) and a
+    constant c < 2^32, in two 16-bit halves so no int64 product overflows."""
+    return ((a & 0xFFFF) * c + ((((a >> 16) * c) & 0xFFFF) << 16)) & 0xFFFFFFFF
+
+
+def _fmix32(h):
+    """murmur3's 32-bit finalizer: a bijective mix of every input bit."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def _prune_uniforms(seed: int, hop: int, salt: torch.Tensor, width: int) -> torch.Tensor:
+    """[B, width] uniforms in [0, 1) keyed by (seed, hop, per-query salt,
+    slot): a counter-based hash, so a query draws the same numbers whatever
+    its batch and device. The reference folds (seed, hop, salt) into a
+    jax.random key, whose bits torch cannot reproduce."""
+    key = _fmix32((_fmix32(seed & 0xFFFFFFFF) ^ (hop & 0xFFFFFFFF)) & 0xFFFFFFFF)
+    k = _fmix32(salt.long() & 0xFFFFFFFF ^ key)
+    slot = torch.arange(width, dtype=torch.int64, device=salt.device)
+    h = _fmix32((k[:, None] + slot[None, :] * 0x9E3779B9) & 0xFFFFFFFF)
+    return (h >> 8).float() * (1.0 / (1 << 24))
+
+
+def _prune_mask(degrees, ids, keep, pool_count, it: int, salt, *,
+                strategy: PruningStrategy, prune_ratio: float, ef: int, seed: int):
+    """Which unvisited neighbours [B, E] a hop scores (the reference's
+    `_prune_mask`, batch-major). GLOBAL keeps the first ceil(E_valid * (1 -
+    fill * ratio)) in candidate order, pruning harder as the pool fills;
+    LOCAL the first ceil(E_valid * (1 - ratio)); PROPORTIONAL accepts each
+    at random with probability degree-weighted to that count, falling back
+    to the first candidate when none is accepted. At least one is kept."""
+    keep_i = keep.to(torch.int32)
+    e_valid = keep_i.sum(dim=1)
+    pos = torch.cumsum(keep_i, dim=1) - 1  # rank among kept
+    num_to_keep = torch.clamp(
+        torch.ceil(e_valid.float() * (1.0 - prune_ratio)).to(torch.int32), min=1)
+    if strategy == PruningStrategy.GLOBAL:
+        ratio = pool_count.float() / float(ef)
+        adj = torch.ceil(e_valid.float() * (1.0 - ratio * prune_ratio)).to(torch.int32)
+        return keep & (pos < torch.clamp(adj, min=1)[:, None])
+    if strategy == PruningStrategy.LOCAL:
+        return keep & (pos < num_to_keep[:, None])
+    n = degrees.shape[0]
+    deg = torch.where(keep, degrees[torch.clamp(ids, 0, n - 1).long()], 0)
+    total = torch.clamp(deg.sum(dim=1), min=1)
+    prob = deg.float() / total.float()[:, None]
+    u = _prune_uniforms(seed, it, salt, keep.shape[1])
+    accept = keep & (u < prob * num_to_keep.float()[:, None])
+    acc_pos = torch.cumsum(accept.to(torch.int32), dim=1) - 1
+    accept = accept & (acc_pos < num_to_keep[:, None])
+    first_valid = keep & (pos == 0)
+    return torch.where(accept.any(dim=1, keepdim=True), accept, first_valid)
+
+
+def make_prune_fn(strategy: PruningStrategy, prune_ratio: float, ef: int, seed: int = 0):
+    """Pruning mask `(degrees, ids, keep, pool_count, hop, salt) -> keep`;
+    None when prune_ratio == 0 (score every unvisited neighbour). Pruned
+    neighbours are not scored and stay out of the pool."""
+    if prune_ratio <= 0.0:
+        return None
+    return functools.partial(_prune_mask, strategy=strategy, prune_ratio=prune_ratio,
+                             ef=ef, seed=seed)
 
 
 def _dedup_sorted(ids: torch.Tensor, num_nodes: int, d: torch.Tensor | None = None):
@@ -134,27 +231,40 @@ def _expand(neighbors, sel_ids, sel_valid):
     return safe, nbr_ids, nbr_valid
 
 
-def batched_search(qp, x_prepped, neighbors, entry_point, *, metric, ef,
-                   expand_width=4, max_iters=100):
-    """Exact-gate search. qp [B, d] prepped queries, entry_point int or [B]
-    -> (dists [B, ef], ids [B, ef]) ascending."""
+def batched_search(qp, ctx, neighbors, entry_point, degrees=None, *, scorer, ef,
+                   expand_width=4, max_iters=100, prune_fn=None):
+    """Exact-gate search. qp [B, d] prepped queries, `scorer(ctx, q, ids,
+    valid)`, entry_point an int or [B] -> (dists [B, ef], ids [B, ef])
+    ascending. `prune_fn` (make_prune_fn) masks which unvisited neighbours
+    each hop scores, from the node `degrees` [N] (zeros when None), the
+    pool's fill, the hop number and a per-query salt: the bits of the
+    query's first component, as the reference takes them."""
     b = qp.shape[0]
     n, _ = neighbors.shape
     entry = torch.as_tensor(entry_point, dtype=torch.int32, device=qp.device)
     entry = torch.clamp(entry.expand(b), min=0).contiguous()
-    d_entry = stored_scorer(x_prepped, qp, entry[:, None],
-                            torch.ones((b, 1), dtype=torch.bool, device=qp.device),
-                            metric)[:, 0]
+    d_entry = scorer(ctx, qp, entry[:, None],
+                     torch.ones((b, 1), dtype=torch.bool, device=qp.device))[:, 0]
     pool_d, pool_code = _init_pool(entry, d_entry, ef)
+    if prune_fn is not None:
+        if degrees is None:
+            degrees = torch.zeros((n,), dtype=torch.int32, device=qp.device)
+        salt = qp[:, 0].contiguous().view(torch.int32)
+    hop = 0  # the reference's `it`: every still-active query is at this hop
 
     def body(state):
+        nonlocal hop
         pool_d, pool_code = state
         pool_code, sel_ids, sel_valid = _pop(pool_d, pool_code, expand_width)
         _, nbr_ids, nbr_valid = _expand(neighbors, sel_ids, sel_valid)
         nbr_ids = torch.where(nbr_valid, nbr_ids, n)
         sorted_ids, keep, _ = _dedup_sorted(nbr_ids, n)
         keep = keep & _not_in_set(sorted_ids, pool_code >> 1)
-        new_d = stored_scorer(x_prepped, qp, sorted_ids, keep, metric)
+        if prune_fn is not None:
+            pool_count = (pool_d < _INF).sum(dim=1, dtype=torch.int32)
+            keep = prune_fn(degrees, sorted_ids, keep, pool_count, hop, salt)
+        hop += 1
+        new_d = scorer(ctx, qp, sorted_ids, keep)
         new_code = pack_id_expanded(torch.where(keep, sorted_ids, SENTINEL), ~keep)
         all_d, all_code = merge_sorted_with_new(pool_d, pool_code, new_d, new_code)
         return all_d[:, :ef], all_code[:, :ef]
@@ -260,17 +370,19 @@ def _rescore_into_pool(score, pool_d, pool_code, ids, valid, n_exact):
     return pool_d, pool_code, n_exact + valid.sum(dim=1, dtype=torch.int32)
 
 
-def batched_sketch_gated_query(qp, qs, x_prepped, scale, neighbors, nbr_sketch,
-                               node_sketch, routing_ids, *, metric, dim, ef, k,
-                               aq_width, promote_width, expand_width=4,
+def batched_sketch_gated_query(qp, qs, exact_ctx, scale, neighbors, nbr_sketch,
+                               node_sketch, routing_ids, *, exact_scorer, metric, dim,
+                               ef, k, aq_width, promote_width, expand_width=4,
                                max_iters=100, static_iters=False,
                                final_rescore=0, hop_merge_mode="inline"):
     """Two-level sketch-gated query with per-query routing entries.
 
-    The pool (and so navigation and termination) runs on EXACT distances;
-    calibrated sketch distances of each hop's discoveries feed the AQ, and
-    its best `promote_width` entries per hop are scored exactly.
-    Returns (dists [B, k], ids [B, k], n_exact [B])."""
+    The pool (and so navigation and termination) runs on EXACT distances,
+    `exact_scorer(exact_ctx, q, ids, valid)`: stored rows or embeddings
+    recomputed through a provider; calibrated sketch distances of each hop's
+    discoveries feed the AQ, and its best `promote_width` entries per hop
+    are scored exactly. With a recompute scorer, mean(n_exact) / N is the
+    recompute fraction. Returns (dists [B, k], ids [B, k], n_exact [B])."""
     b = qp.shape[0]
     n, m = neighbors.shape
     _check_hop_merge(hop_merge_mode, n)
@@ -280,7 +392,7 @@ def batched_sketch_gated_query(qp, qs, x_prepped, scale, neighbors, nbr_sketch,
 
     entry = route_entries(qs, routing_ids, node_sketch, metric)
     ones = torch.ones((b, 1), dtype=torch.bool, device=qp.device)
-    d_entry = stored_scorer(x_prepped, qp, entry[:, None], ones, metric)[:, 0]
+    d_entry = exact_scorer(exact_ctx, qp, entry[:, None], ones)[:, 0]
     pool_d, pool_code = _init_pool(entry, d_entry, ef)
     aq_i = torch.full((b, aq_width), SENTINEL, dtype=torch.int32, device=qp.device)
     aq_d = torch.full((b, aq_width), _INF, dtype=torch.float32, device=qp.device)
@@ -297,7 +409,7 @@ def batched_sketch_gated_query(qp, qs, x_prepped, scale, neighbors, nbr_sketch,
         return exact_work | aq_work
 
     def exact(ids, valid):
-        return stored_scorer(x_prepped, qp, ids, valid, metric)
+        return exact_scorer(exact_ctx, qp, ids, valid)
 
     def body(state):
         pool_d, pool_code, aq_d, aq_i, n_exact = state
@@ -338,21 +450,6 @@ def route_entries(qs: torch.Tensor, routing_ids: torch.Tensor,
     return routing_ids[torch.argmin(d, dim=1)].to(torch.int32)
 
 
-def make_recompute_scorer(embed, metric: DistanceMetric):
-    """Exact scorer that recomputes embeddings on the fly through a
-    provider's `embed(ids [B, E]) -> [B, E, d]`: scorer(qp [B, d], ids [B, E],
-    valid [B, E]) -> [B, E], +inf where not valid. Invalid ids are fetched as
-    id 0 and masked."""
-
-    def scorer(qp, ids, valid):
-        rows = embed(torch.where(valid, ids, 0).to(torch.int32))
-        rows = dist_ops.prep_corpus(rows, metric)
-        d = dist_ops.rowwise_distance(qp, rows, metric)
-        return torch.where(valid, d, _INF)
-
-    return scorer
-
-
 def route_entries_embed(q, embed, routing_ids: torch.Tensor,
                         metric: DistanceMetric) -> torch.Tensor:
     """Per-query entry points [B] by EXACT distance to a routing sample: one
@@ -364,7 +461,7 @@ def route_entries_embed(q, embed, routing_ids: torch.Tensor,
     return routing_ids[torch.argmin(d, dim=1)].to(torch.int32)
 
 
-def batched_two_level_search(qp, nbr_codes, prep_ctx, neighbors, entry_point, *,
+def batched_two_level_search(qp, exact_ctx, nbr_codes, prep_ctx, neighbors, entry_point, *,
                              exact_scorer, approx_scorer, prep_fn, ef: int,
                              aq_width: int, promote_width: int, expand_width: int = 4,
                              max_iters: int = 100, promote_exact: bool = True,
@@ -375,8 +472,9 @@ def batched_two_level_search(qp, nbr_codes, prep_ctx, neighbors, entry_point, *,
     qp [B, d] prepped queries; nbr_codes [N, m0*S] uint8
     (pq.build_inline_codes); `prep_fn(prep_ctx, qp) -> tables [B, S, K]`;
     `approx_scorer(tables, block_codes [B, E, S], valid [B, E]) -> [B, E]`
-    (pq.gated_block_scorer_for); `exact_scorer(qp, ids, valid) -> [B, E]`
-    (make_recompute_scorer); entry_point an int or [B] routed entries.
+    (pq.gated_block_scorer_for); `exact_scorer(exact_ctx, qp, ids, valid)
+    -> [B, E]` (make_recompute_scorer, ctx a provider's `embed`); entry_point
+    an int or [B] routed entries.
 
     The pool runs on exact distances. Each hop expands the best
     `expand_width` unexpanded pool entries, scores their neighbours by ADC
@@ -398,7 +496,7 @@ def batched_two_level_search(qp, nbr_codes, prep_ctx, neighbors, entry_point, *,
 
     entry = torch.as_tensor(entry_point, dtype=torch.int32, device=dev)
     entry = torch.clamp(entry.expand(b), min=0).contiguous()
-    d_entry = exact_scorer(qp, entry[:, None],
+    d_entry = exact_scorer(exact_ctx, qp, entry[:, None],
                            torch.ones((b, 1), dtype=torch.bool, device=dev))[:, 0]
     pool_d, pool_code = _init_pool(entry, d_entry, ef)
     aq_i = torch.full((b, aq_width), SENTINEL, dtype=torch.int32, device=dev)
@@ -414,7 +512,7 @@ def batched_two_level_search(qp, nbr_codes, prep_ctx, neighbors, entry_point, *,
         return _exact_cond(pool_d, pool_code) | aq_work
 
     def exact(ids, valid):
-        return exact_scorer(qp, ids, valid)
+        return exact_scorer(exact_ctx, qp, ids, valid)
 
     def body(state):
         pool_d, pool_code, aq_d, aq_i, n_exact = state
@@ -448,7 +546,7 @@ def batched_two_level_search(qp, nbr_codes, prep_ctx, neighbors, entry_point, *,
         # One exact rescore of the pooled ef candidates, sorted stably by
         # distance (lax.sort with num_keys=1; -0.0 equals +0.0).
         valid = pool_d < _INF
-        d_re = exact_scorer(qp, torch.where(valid, pool_ids, 0), valid)
+        d_re = exact(torch.where(valid, pool_ids, 0), valid)
         order = argsort(d_re)
         pool_d, pool_ids = d_re.gather(1, order), pool_ids.gather(1, order)
         n_exact = n_exact + valid.sum(dim=1, dtype=torch.int32)
@@ -519,7 +617,8 @@ class StoredSearcher:
             d, ids, _ = batched_sketch_gated_query(
                 qp, qs, self.x_prepped, self.sketch.scale, self.graph.neighbors,
                 self.sketch.nbr_sketch, self.sketch.node_sketch, self._routing,
-                metric=self.metric, dim=int(qp.shape[1]), ef=ef, k=k,
+                exact_scorer=make_stored_scorer(self.metric), metric=self.metric,
+                dim=int(qp.shape[1]), ef=ef, k=k,
                 aq_width=aq_width or max(ef, 64), promote_width=promote,
                 expand_width=expand_width, max_iters=max_iters,
                 static_iters=static_loop, final_rescore=final_rescore,
@@ -535,6 +634,6 @@ class StoredSearcher:
             qs = proj_ops.sketch_query(qp, self.sketch.w, self.sketch.scale)
             entry = route_entries(qs, self._routing, self.sketch.node_sketch, self.metric)
         dists, ids = batched_search(qp, self.x_prepped, self.graph.neighbors, entry,
-                                    metric=self.metric, ef=ef,
+                                    scorer=make_stored_scorer(self.metric), ef=ef,
                                     expand_width=expand_width, max_iters=max_iters)
         return dists[:, :k], ids[:, :k]

@@ -91,20 +91,25 @@ def prep_corpus(x: torch.Tensor, metric: DistanceMetric) -> torch.Tensor:
 
 def brute_force_topk(q: torch.Tensor, x: torch.Tensor, k: int,
                      metric: DistanceMetric = DistanceMetric.COSINE,
-                     batch: int = 8192) -> tuple[torch.Tensor, torch.Tensor]:
+                     batch: int = 8192, dist_fn=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k by full scan, the recall oracle. Returns (dists [B, k],
-    ids [B, k]) ascending; scans `x` in chunks of `batch` rows.
+    ids [B, k]) ascending; scans `x` in chunks of `batch` rows. Each chunk's
+    distance matrix is `pairwise_distance` under `metric`, or
+    `dist_fn(q, chunk)` when given (the ops API's kernels, say).
 
     The reference keeps the best k with lax.top_k, which puts the lower
     index first on ties; `smallest_k` of [best ++ chunk] keeps the same
     entries in the same order (torch.topk promises no tie order)."""
+    if dist_fn is None:
+        def dist_fn(a, c):
+            return pairwise_distance(a, c, metric)
     n = x.shape[0]
     b = q.shape[0]
     best_d = torch.full((b, k), float("inf"), dtype=torch.float32, device=q.device)
     best_i = torch.full((b, k), -1, dtype=torch.int32, device=q.device)
     for start in range(0, n, batch):
         stop = min(start + batch, n)
-        d = pairwise_distance(q, x[start:stop], metric)
+        d = dist_fn(q, x[start:stop])
         ids = torch.arange(start, stop, dtype=torch.int32,
                            device=q.device)[None, :].expand(b, -1)
         all_d = torch.cat([best_d, d], dim=1)

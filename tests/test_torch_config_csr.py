@@ -155,6 +155,16 @@ def test_guard_covers_the_config4_modules(module):
     assert module in _port_modules()
 
 
+@pytest.mark.parametrize("module", [
+    "islands_tpu_torch.ops.pairwise", "islands_tpu_torch.ops.gather",
+    "islands_tpu_torch.benches.gather_bench", "islands_tpu_torch.core.storage",
+    "islands_tpu_torch.core.hnsw", "islands_tpu_torch.core.searchapi"])
+def test_guard_covers_the_lifecycle_modules(module):
+    # The third slice's modules (K4, K5, storage, HNSW, search API) are
+    # among those the two guards below import and parse.
+    assert module in _port_modules()
+
+
 def test_import_isolation_subprocess():
     """Importing every module of the port loads neither jax nor islands_tpu."""
     code = ("import importlib, sys\n"

@@ -17,7 +17,14 @@ from islands_tpu_torch.ops.adc import (
     gated_adc_reference,
     gated_adc_sums,
 )
+from islands_tpu_torch.ops.gather import row_gather, row_gather_reference
 from islands_tpu_torch.ops.hop_merge import hop_merge, hop_merge_reference
+from islands_tpu_torch.ops.pairwise import (
+    pairwise_l2,
+    pairwise_l2_reference,
+    pairwise_neg_dot,
+    pairwise_neg_dot_reference,
+)
 
 
 def _batch(rng, b, e, a, ties):
@@ -148,3 +155,83 @@ def test_adc_scan_kernel_refuses_tables_past_shared_memory():
     tables, codes = _adc_inputs(np.random.default_rng(0), 2, 16, 4096, (10,), np.int32)
     with pytest.raises(RuntimeError):
         adc_scan(tables, codes)
+
+
+def _pairwise_inputs(rng, b, n, d):
+    """q [B, d], x [N, d] on the card, with x's first rows equal to q's (their
+    squared distances cancel to about 0 and must clamp to >= 0)."""
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    dup = min(b, n, 16)
+    x[:dup] = q[:dup]
+    return torch.from_numpy(q).cuda(), torch.from_numpy(x).cuda()
+
+
+def assert_pairwise_close(got, want, q, x, mode):
+    """K4 against its plain version. The two sum in different orders, so
+    the squared form is held within 1e-5 * (|q|^2 + |x|^2), the sqrt form by
+    the square root of that bound (|sqrt(a) - sqrt(b)| <= sqrt(|a - b|), so
+    no relative error is taken near 0) and neg-dot within 1e-5 * |q| * |x|:
+    about 100 float32 ulps of the terms' scale, far above the rounding of
+    either order at d <= 1024."""
+    qn = torch.sum(q.double() * q.double(), dim=1).float()
+    xn = torch.sum(x.double() * x.double(), dim=1).float()
+    if mode == "neg_dot":
+        tol = 1e-5 * torch.sqrt(qn)[:, None] * torch.sqrt(xn)[None, :]
+    else:
+        tol = 1e-5 * (qn[:, None] + xn[None, :])
+        if mode == "l2":
+            tol = torch.sqrt(tol)
+        assert bool((got >= 0).all())
+    assert got.shape == want.shape
+    assert bool(((got - want).abs() <= tol).all()), float((got - want).abs().max())
+
+
+def _pairwise(mode, q, x, kernel):
+    if mode == "neg_dot":
+        return (pairwise_neg_dot(q, x, use_kernel=True) if kernel
+                else pairwise_neg_dot_reference(q, x))
+    squared = mode == "l2_squared"
+    return (pairwise_l2(q, x, squared=squared, use_kernel=True) if kernel
+            else pairwise_l2_reference(q, x, squared=squared))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["l2", "l2_squared", "neg_dot"])
+@pytest.mark.parametrize("b,n,d", [(4096, 65536, 128), (512, 20000, 128), (1000, 10000, 32),
+                                   (1000, 10000, 512), (1000, 10000, 1024), (5, 7, 8),
+                                   (33, 130, 13), (9, 11, 7), (0, 7, 16), (5, 0, 16)])
+def test_pairwise_kernel_matches_plain_version(b, n, d, mode):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    q, x = _pairwise_inputs(np.random.default_rng(b + n + d), b, n, d)
+    wrapper = pairwise_neg_dot if mode == "neg_dot" else pairwise_l2
+    before = wrapper.launches
+    got = _pairwise(mode, q, x, kernel=True)
+    want = _pairwise(mode, q, x, kernel=False)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + (1 if b * n else 0)
+    assert_pairwise_close(got, want, q, x, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k,dtype", [(1_000_000, 128, 131072, np.float32),
+                                         (1_000_000, 128, 1000, np.float32),
+                                         (1000, 7, 333, np.float32), (4096, 480, 4099, np.int32),
+                                         (1000, 128, 0, np.float32)])
+def test_row_gather_kernel_matches_plain_version(n, d, k, dtype):
+    # Bit for bit, with ids below 0 and past N clamped in both.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    rng = np.random.default_rng(n + k)
+    x = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (n, d), dtype=np.int64)
+                         .astype(np.int32).view(dtype)).cuda()
+    ids = rng.integers(-5, n + 5, k).astype(np.int32)
+    ids = torch.from_numpy(ids).cuda()
+    before = row_gather.launches
+    got = row_gather(x, ids)
+    want = row_gather_reference(x, ids)
+    torch.cuda.synchronize()
+    assert row_gather.launches == before + (1 if k else 0)
+    assert got.shape == (k, d)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

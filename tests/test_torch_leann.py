@@ -180,10 +180,14 @@ def test_errors_raise_where_the_reference_raises(state):
         state["port"].search_two_level(q, k=3, provider=tprov, adc_impl="nope")
     with pytest.raises(ValueError):
         state["port"].search_two_level(q, k=3, provider=tprov, hop_merge="nope")
-    with pytest.raises(NotImplementedError):
-        state["port"].search(q, k=3, provider=tprov)
-    with pytest.raises(NotImplementedError):
-        state["port"].extend(tprov)
+    with pytest.raises(IndexNotBuilt):
+        empty.search(q, k=3, provider=tprov)
+    with pytest.raises(IndexNotBuilt):
+        empty.extend(tprov)
+    with pytest.raises(DimensionMismatch):
+        state["port"].search(wide, k=3, provider=tprov)
+    with pytest.raises(ValueError):
+        state["port"].search(q, k=3, provider=tprov, gate="nope")
 
 
 def test_pq_scan_k_larger_than_corpus_pads():
