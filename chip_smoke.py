@@ -12,8 +12,9 @@ Phases, each fatal on failure:
    at its paths' shapes (ties and edge codes included), with its device time
    (torch.profiler, beside the CUDA-event time of the wrapper calls), the
    plain version's time, its bound and the time of one PyTorch library call
-   that computes the same function, where there is one. K4 (pairwise
-   tiles) is held within 1e-5 of the operands' squared norms (see
+   that computes the same function, where there is one. K1 (hop-merge) is
+   held bit for bit on both of its routes, K4 (pairwise tiles, 3xTF32 on
+   the tensor cores) within 1e-5 of the operands' squared norms (see
    assert_pairwise_close), K5 (row gather) bit for bit. Then smallest_k's two
    routes (stable sort, top-k on unique keys) at the paths' row widths: equal
    positions, and the time of each, which sets merge.SORT_MAX_WIDTH.
@@ -31,7 +32,9 @@ Phases, each fatal on failure:
 5. the gather bench (islands_tpu_torch.benches.gather_bench.main at the
    reference bench's sizes, kernel K5) and the ops API: brute-force top-10
    of phase 3's queries through ops.pairwise_l2 / pairwise_neg_dot with
-   use_kernel=True (kernel K4), against brute_force_topk.
+   use_kernel=True (kernel K4), against brute_force_topk: the same ids on
+   every row but swaps of candidates whose distances agree within K4's
+   tolerance, which are counted.
 6. the index lifecycle at phase 3's corpus and LeannConfig:
    LeannIndex.build_from_embeddings on 934,464 rows, extend to all rows (one
    65,536-row re-index), save_index (with and without the sketch),
@@ -100,19 +103,21 @@ from islands_tpu_torch.ops.pairwise import (
     pairwise_neg_dot_reference,
 )
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and the
-# non-tensor-core float32 rate, used for a kernel's bound. A shared-memory
-# lookup runs at 32 per SM per clock (one 4-byte word per bank).
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, the
+# non-tensor-core float32 rate and the dense TF32 tensor-core rate, used for
+# a kernel's bound. A shared-memory lookup runs at 32 per SM per clock (one
+# 4-byte word per bank).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32_TC_OPS_PER_S = 494.7e12
 SMEM_LOOKUPS_PER_SM_CLOCK = 32
 
 # Each kernel: its wrapper (whose `launches` counts launches), source, the
-# TPU kernel it replaces and the CUDA kernel's name in the profiler. K4a and
-# K4b are two modes of one source.
+# TPU kernel it replaces and the CUDA kernel's name in the profiler (K1's
+# timed shapes take its warp route). K4a and K4b are two modes of one source.
 KERNELS = {
     "hop_merge": (hop_merge, "islands_tpu_torch/csrc/hop_merge.cu",
-                  "islands_tpu/ops/pallas_kernels.py:412", "hop_merge_kernel"),
+                  "islands_tpu/ops/pallas_kernels.py:412", "hop_merge_warp_kernel"),
     "gated_adc": (gated_adc_sums, "islands_tpu_torch/csrc/gated_adc.cu",
                   "islands_tpu/ops/pallas_kernels.py:135", "gated_adc_kernel"),
     "adc_scan": (adc_scan, "islands_tpu_torch/csrc/adc_scan.cu",
@@ -277,7 +282,8 @@ def hop_merge_bound_ms(b, e, a, pw) -> float:
 
 def phase_hop_merge() -> dict:
     """K1 against its plain version at both gated paths' shapes, exactly:
-    config 2 (A = 64) and the two-level hop of config 4 (A = 128)."""
+    config 2 (A = 64) and the two-level hop of config 4 (A = 128) on the
+    warp route, and one shape past it (E = 300) on the block route."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     b = 4096
     max_err = 0.0
@@ -285,7 +291,7 @@ def phase_hop_merge() -> dict:
                            (120, 64, 48, False), (240, 64, 64, False), (120, 64, 16, True),
                            (240, 64, 64, True), (120, 128, 16, False), (120, 128, 24, False),
                            (120, 128, 32, False), (120, 128, 16, True), (120, 128, 24, True),
-                           (120, 128, 32, True)]:
+                           (120, 128, 32, True), (300, 64, 16, True)]:
         args = hop_merge_inputs(gen, b, e, a, ties)
         got = hop_merge(*args, pw)
         want = hop_merge_reference(*args, pw)
@@ -303,7 +309,7 @@ def phase_hop_merge() -> dict:
         e, pw = 120, 16
         args = hop_merge_inputs(gen, b, e, a, False)
         event_ms = time_ms(lambda: hop_merge(*args, pw), 200)
-        ms = kernel_device_ms(lambda: hop_merge(*args, pw), "hop_merge_kernel", 200)
+        ms = kernel_device_ms(lambda: hop_merge(*args, pw), KERNELS["hop_merge"][3], 200)
         plain_ms = time_ms(lambda: hop_merge_reference(*args, pw), 20)
         bound = hop_merge_bound_ms(b, e, a, pw)
         log(f"  hop_merge B={b} E={e} A={a} pw={pw}: kernel {ms:.4f} ms on the device "
@@ -447,11 +453,19 @@ def phase_smallest_k() -> list:
 
 
 def pairwise_bound_ms(b, n, d) -> tuple[float, str]:
-    """K4's least time: 2*B*N*d flops at the f32 rate against q, x and the
-    output over HBM; the larger, and which."""
-    ops_ms = 2 * b * n * d / F32_OPS_PER_S * 1e3
+    """K4's least time for float32-accurate work on the tensor cores: three
+    TF32 products (3xTF32), 6*B*N*d flops at the dense TF32 rate, against
+    q, x and the output over HBM; the larger, and which."""
+    ops_ms = 6 * b * n * d / TF32_TC_OPS_PER_S * 1e3
     bytes_ms = (b * d + n * d + b * n) * 4 / HBM_BYTES_PER_S * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def pairwise_simt_bound_ms(b, n, d) -> float:
+    """The same work on the CUDA cores: 2*B*N*d flops at the f32 rate, or
+    the bytes; the larger (K4's bound before it used the tensor cores)."""
+    return max(2 * b * n * d / F32_OPS_PER_S,
+               (b * d + n * d + b * n) * 4 / HBM_BYTES_PER_S) * 1e3
 
 
 def assert_pairwise_close(got, want, q, x, mode, what) -> float:
@@ -523,6 +537,7 @@ def phase_pairwise() -> tuple[dict, dict]:
     for b, n, d in PAIRWISE_TIMED:
         q, x = pairwise_inputs(gen, b, n, d)
         bound = pairwise_bound_ms(b, n, d)
+        simt_bound = pairwise_simt_bound_ms(b, n, d)
         for mode, kname in (("l2", "pairwise_kernel<0>"), ("l2_squared", "pairwise_kernel<1>"),
                             ("neg_dot", "pairwise_kernel<2>")):
             fn, plain = _pairwise_call(mode, True), _pairwise_call(mode, False)
@@ -546,11 +561,13 @@ def phase_pairwise() -> tuple[dict, dict]:
                 library_ms = time_ms(library, 10)
             log(f"  pairwise {mode} B={b} N={n} d={d}: kernel {ms:.4f} ms on the device "
                 f"({event_ms:.4f} ms per wrapper call by CUDA events), plain {plain_ms:.4f} "
-                f"ms, bound {bound[0]:.4f} ms ({bound[1]}), library "
+                f"ms, bound {bound[0]:.4f} ms ({bound[1]}; {100 * bound[0] / ms:.1f}% of it), "
+                f"SIMT bound {simt_bound:.4f} ms, library "
                 + (f"{lib_name} {library_ms:.4f} ms" if library_ms is not None else "none"))
             timings.append(dict(b=b, n=n, d=d, mode=mode, ms=ms, event_ms=event_ms,
                                 plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
-                                library_ms=library_ms, library=lib_name))
+                                simt_bound_ms=simt_bound, library_ms=library_ms,
+                                library=lib_name))
         del q, x
     head = {m: next(t for t in timings if t["mode"] == m) for m in PAIRWISE_MODES}
 
@@ -558,7 +575,8 @@ def phase_pairwise() -> tuple[dict, dict]:
         t = head[mode]
         return dict(max_abs_err=max(errs[m] for m in (mode, *others)), ms=t["ms"],
                     event_ms=t["event_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                    bound_by=t["bound_by"], library_ms=t["library_ms"],
+                    bound_by=t["bound_by"], simt_bound_ms=t["simt_bound_ms"],
+                    library_ms=t["library_ms"],
                     library=t["library"], shape=[t["b"], t["n"], t["d"]],
                     timings=[x for x in timings if x["mode"] in (mode, *others)])
 
@@ -857,11 +875,30 @@ def phase_gather_bench() -> dict:
     return dict(out, launches=launches)
 
 
-def phase_ops_api(x, queries, true_ids) -> dict:
+def swapped_rows(d, ids, want_d, want_ids, queries, x, mode) -> int:
+    """Rows whose top-10 ids differ from the oracle's; raises unless, rank
+    by rank, the two rows' distances agree within K4's tolerance (near-ties
+    that the kernel's and the plain version's sums order differently)."""
+    rows = torch.nonzero(~torch.all(ids == want_ids, dim=1)).squeeze(1)
+    if rows.numel() == 0:
+        return 0
+    qn = torch.sum(queries[rows].double() ** 2, dim=1)[:, None]
+    xn = torch.maximum(torch.sum(x[ids[rows].long()].double() ** 2, dim=-1),
+                       torch.sum(x[want_ids[rows].long()].double() ** 2, dim=-1))
+    tol = (1e-5 * torch.sqrt(qn * xn) if mode == "neg_dot"
+           else torch.sqrt(1e-5 * (qn + xn)))
+    gap = (d[rows].double() - want_d[rows].double()).abs()
+    if not bool((gap <= tol).all()):
+        raise AssertionError(f"ops API {mode} top-10 differs from the oracle's beyond K4's "
+                             f"tolerance (largest gap {float(gap.max()):.3e})")
+    return rows.numel()
+
+
+def phase_ops_api(x, queries) -> dict:
     """K4's path: exact top-10 of phase 3's queries over its corpus through
     the ops API with the kernel (pairwise_l2 for euclidean, pairwise_neg_dot
-    for the dot product), held to brute_force_topk's: recall@10 >= 0.999
-    (near-ties may order differently, the sums running in other orders)."""
+    for the dot product), held to brute_force_topk's: the same ids on every
+    row but swaps within K4's tolerance (swapped_rows), counted."""
     zero_launches()
     out = {}
     for name, dist, metric in (
@@ -874,15 +911,14 @@ def phase_ops_api(x, queries, true_ids) -> dict:
         d, ids = brute_force_topk(queries, x, 10, metric, batch=65536, dist_fn=dist)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        want = true_ids if metric == DistanceMetric.EUCLIDEAN else brute_force_topk(
-            queries, x, 10, metric, batch=65536)[1]
+        want_d, want = brute_force_topk(queries, x, 10, metric, batch=65536)
         rec = recall_at_10(ids, want)
         same = float(torch.all(ids == want, dim=1).float().mean())
-        if rec < 0.999:
-            raise AssertionError(f"ops API {name} top-10 recall {rec:.5f} < 0.999")
+        swaps = swapped_rows(d, ids, want_d, want, queries, x, name)
         log(f"  ops API {name} top-10 over {x.shape[0]}x{x.shape[1]}: {secs:.3f} s, recall@10 "
-            f"{rec:.5f} against brute_force_topk, identical rows {same:.5f}")
-        out[name] = dict(seconds=secs, recall=rec, identical_rows=same)
+            f"{rec:.5f} against brute_force_topk, identical rows {same:.5f}; rows with "
+            f"swaps within K4's tolerance: {swaps}")
+        out[name] = dict(seconds=secs, recall=rec, identical_rows=same, swapped_rows=swaps)
     launches = read_launches()
     for kname in ("pairwise_l2", "pairwise_neg_dot"):
         if launches[kname] <= 0:
@@ -1051,14 +1087,17 @@ def build_kernels() -> None:
     log(f"  nvcc built {', '.join(SOURCES)} in {time.perf_counter() - t0:.2f} s")
     # Dynamic shared memory per block, as each launcher sizes it at the
     # paths' shapes (ptxas reports static shared memory only).
-    smem = {"hop_merge": f"{128 * 12 + 256 * 8} B at E=120, A=64 or 128",
+    smem = {"hop_merge": ("none on the warp route (E=120, A=64 or 128: registers and "
+                          "shuffles); E*12 + L*8 B on the block route"),
             "gated_adc": f"{16 * 256 * 4} B at S=16, K=256",
             "adc_scan": f"{4 * 16 * 256 * 4} B at 4 queries per block, S=16, K=256",
-            "pairwise": "none (the q and x slices and the row norms are static)",
+            "pairwise": (f"{3 * 2 * 128 * 32 * 4 + 2 * 128 * 32 * 4 + 128 * 4 + 1024} B: "
+                         "three stages of 128x32 q and x slices, two x small tiles, the x "
+                         "norms and 1 KB of alignment (one block per SM)"),
             "row_gather": "none"}
     for name, out in outs.items():
         for line in out.splitlines():
-            if "registers" in line or "smem" in line:
+            if any(w in line for w in ("registers", "smem", "spill", "wgmma", "Warning")):
                 log(f"  {name}: {line.strip()}")
         log(f"  {name}: dynamic shared memory {smem[name]}")
 
@@ -1109,7 +1148,7 @@ def main() -> int:
     log(f"phase 5: the gather bench at {GATHER_N}x{GATHER_D}; the ops API over phase 3's corpus")
     bench = phase_gather_bench()
     torch.cuda.empty_cache()
-    ops_api = phase_ops_api(x, queries, true_ids)
+    ops_api = phase_ops_api(x, queries)
     log(f"  phases 1-5: {time.perf_counter() - t_start:.1f} s")
     metric = C2_CONFIG.metric
     log(f"phase 6: the index lifecycle at {x.shape[0]}x{DIM}")

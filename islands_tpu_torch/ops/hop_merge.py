@@ -7,7 +7,10 @@ split off the promote head. Port of islands_tpu/ops/pallas_kernels.py
 
 `hop_merge` launches the CUDA kernel `csrc/hop_merge.cu` on a CUDA tensor
 and runs `hop_merge_reference`, the plain PyTorch composition, only on a CPU
-tensor. `hop_merge.launches` counts kernel launches.
+tensor. `hop_merge.launches` counts kernel launches. The launcher picks the
+kernel's route from the shape: one warp per query with its entries in
+registers up to next_pow2(E) = 256 and next_pow2(A + E) = 512, one block
+per query in shared memory past them.
 """
 
 from __future__ import annotations

@@ -6,8 +6,10 @@ reference's off-by-default `use_pallas`); otherwise the plain version, which
 is also XLA's default route in the reference. Unlike the reference, whose
 TPU tile needs d >= 8, the kernel takes every d >= 1. The kernel
 (`csrc/pairwise.cu`) computes |q|^2 + |x|^2 - 2 q.x (clamped at 0, sqrt
-unless `squared`) or -q.x in full float32, one template for the three
-modes.
+unless `squared`) or -q.x to float32 accuracy, one template for the three
+modes: q.x is three TF32 products on the tensor cores (3xTF32, as the
+reference's Precision.HIGHEST is bf16 passes on the MXU), the norms float32
+sums.
 
 The wrappers run the plain version on CPU tensors. On CUDA tensors with
 `use_kernel` they launch the kernel, counted in `.launches`.

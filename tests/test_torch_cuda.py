@@ -18,7 +18,7 @@ from islands_tpu_torch.ops.adc import (
     gated_adc_sums,
 )
 from islands_tpu_torch.ops.gather import row_gather, row_gather_reference
-from islands_tpu_torch.ops.hop_merge import hop_merge, hop_merge_reference
+from islands_tpu_torch.ops.hop_merge import HOLE, hop_merge, hop_merge_reference
 from islands_tpu_torch.ops.pairwise import (
     pairwise_l2,
     pairwise_l2_reference,
@@ -65,6 +65,94 @@ def test_hop_merge_kernel_matches_plain_version(e, pw, ties):
     assert hop_merge.launches == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _edge_batch(rng, b, e, a, kind):
+    """[B, E] discoveries and a [B, A] queue at any E >= 1, distances on a
+    4-value grid (ties), with one edge `kind`: "all_inf" rows, "one_id"
+    rows that repeat a single id, "neg_zero" distances of -0.0 beside +0.0,
+    "near_hole" ids at HOLE - 1, or "plain"."""
+    n = 1 << 20
+    ids = np.stack([rng.choice(n, size=e, replace=False) for _ in range(b)])
+    d = (rng.integers(0, 4, (b, e)) / 4).astype(np.float32)
+    if e > 1:
+        ids[:, 1] = ids[:, 0]
+        d[:, 1] = d[:, 0]
+    if kind == "one_id":
+        ids[:] = ids[:, :1]
+        d[:] = d[:, :1]
+    if kind == "near_hole":
+        ids[:, ::2] = HOLE - 1
+        d[:, ::2] = d[:, :1]
+    invalid = rng.random((b, e)) < (1.0 if kind == "all_inf" else 0.25)
+    d = np.where(invalid, np.inf, d).astype(np.float32)
+    ids = np.where(invalid, n, ids).astype(np.int32)
+    aqd = np.sort((rng.integers(0, 4, (b, a)) / 4).astype(np.float32), axis=1)
+    aqd[:, a // 2 + 1:] = np.inf
+    if kind == "neg_zero":
+        d[:, ::2] = np.where(d[:, ::2] == 0, np.float32(-0.0), d[:, ::2])
+        aqd[:, ::2] = np.where(aqd[:, ::2] == 0, np.float32(-0.0), aqd[:, ::2])
+    aqi = np.where(np.isinf(aqd), -1, n + 1 + np.arange(a)[None, :]).astype(np.int32)
+    return [torch.from_numpy(x).cuda() for x in (d, ids, aqd, aqi)]
+
+
+def _assert_bits_equal(got, want):
+    # Bit for bit: -0.0 and +0.0 differ here, as they do in the reference.
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pw_at", ["zero", "e"])
+@pytest.mark.parametrize("a", [1, 64, 128, 200])
+@pytest.mark.parametrize("e", [1, 33, 100, 240])
+def test_hop_merge_kernel_across_shapes(e, a, pw_at):
+    # E not a power of two pads the sorts with +inf fillers; pw = 0 writes
+    # no promote head, pw = E the widest one.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    pw = 0 if pw_at == "zero" else e
+    args = _edge_batch(np.random.default_rng(e * 1000 + a), 300, e, a, "plain")
+    want = hop_merge_reference(*args, pw)
+    got = hop_merge(*args, pw)
+    torch.cuda.synchronize()
+    _assert_bits_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["all_inf", "one_id", "neg_zero", "near_hole"])
+@pytest.mark.parametrize("e,a,pw", [(120, 64, 16), (240, 128, 64), (33, 1, 33), (5, 3, 2)])
+def test_hop_merge_kernel_edge_rows(e, a, pw, kind):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    args = _edge_batch(np.random.default_rng(e + a + pw), 257, e, a, kind)
+    want = hop_merge_reference(*args, pw)
+    got = hop_merge(*args, pw)
+    torch.cuda.synchronize()
+    _assert_bits_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,a,pw,route", [(120, 64, 16, "warp"), (120, 128, 24, "warp"),
+                                          (256, 256, 64, "warp"), (300, 64, 16, "block"),
+                                          (120, 600, 16, "block"), (1000, 24, 8, "block")])
+def test_hop_merge_kernel_routes(e, a, pw, route):
+    # The launcher picks the route from the shape: the warp kernel up to
+    # next_pow2(E) = 256 and next_pow2(A + E) = 512, the block kernel past
+    # them. The profiler names the kernel that ran.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    from torch.profiler import ProfilerActivity, profile
+
+    args = _edge_batch(np.random.default_rng(e + a), 130, e, a, "plain")
+    want = hop_merge_reference(*args, pw)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = hop_merge(*args, pw)
+        torch.cuda.synchronize()
+    _assert_bits_equal(got, want)
+    names = [ev.key for ev in prof.key_averages() if "hop_merge_" in ev.key]
+    assert names and all(f"hop_merge_{route}_kernel" in k for k in names), names
 
 
 @pytest.mark.cuda
@@ -211,6 +299,84 @@ def test_pairwise_kernel_matches_plain_version(b, n, d, mode):
     want = _pairwise(mode, q, x, kernel=False)
     torch.cuda.synchronize()
     assert wrapper.launches == before + (1 if b * n else 0)
+    assert_pairwise_close(got, want, q, x, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["l2", "l2_squared", "neg_dot"])
+@pytest.mark.parametrize("d", [1, 3, 4, 9, 33, 127])
+def test_pairwise_kernel_at_odd_depths(d, mode):
+    # d % 4 != 0 takes the kernel's 4-byte copies; d = 33 and 127 leave a
+    # ragged last slice of 32; B and N are ragged against the 128 x 128 tiles.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    q, x = _pairwise_inputs(np.random.default_rng(d), 200, 333, d)
+    got = _pairwise(mode, q, x, kernel=True)
+    want = _pairwise(mode, q, x, kernel=False)
+    torch.cuda.synchronize()
+    assert_pairwise_close(got, want, q, x, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["l2", "l2_squared", "neg_dot"])
+@pytest.mark.parametrize("d,offset", [(16, "row"), (7, "row"), (128, "element")])
+def test_pairwise_kernel_on_offset_views(d, offset, mode):
+    # Contiguous views that start past their storage: one row in (16-byte
+    # aligned only when d % 4 == 0) or one float in (never aligned), so
+    # the kernel takes its 4-byte copy route at d = 128 too.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    rng = np.random.default_rng(d)
+    b, n = 130, 260
+    if offset == "row":
+        q = torch.from_numpy(rng.standard_normal((b + 1, d)).astype(np.float32)).cuda()[1:]
+        x = torch.from_numpy(rng.standard_normal((n + 1, d)).astype(np.float32)).cuda()[1:]
+    else:
+        q = torch.from_numpy(rng.standard_normal(b * d + 1).astype(np.float32)).cuda()[1:]
+        x = torch.from_numpy(rng.standard_normal(n * d + 1).astype(np.float32)).cuda()[1:]
+        q, x = q.view(b, d), x.view(n, d)
+    assert q.is_contiguous() and x.is_contiguous()
+    if offset == "element" or d % 4:
+        assert q.data_ptr() % 16 and x.data_ptr() % 16
+    got = _pairwise(mode, q, x, kernel=True)
+    want = _pairwise(mode, q, x, kernel=False)
+    torch.cuda.synchronize()
+    assert_pairwise_close(got, want, q, x, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["l2", "l2_squared", "neg_dot"])
+@pytest.mark.parametrize("scale", [1e-3, 1e3])
+@pytest.mark.parametrize("d", [128, 768])
+def test_pairwise_kernel_with_scaled_operands(d, scale, mode):
+    # The 3xTF32 split keeps float32's exponent range, so the error stays
+    # relative to the operands' norms at either scale.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    q, x = _pairwise_inputs(np.random.default_rng(d), 300, 500, d)
+    q, x = q * scale, x * scale
+    got = _pairwise(mode, q, x, kernel=True)
+    want = _pairwise(mode, q, x, kernel=False)
+    torch.cuda.synchronize()
+    assert_pairwise_close(got, want, q, x, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["l2", "l2_squared", "neg_dot"])
+@pytest.mark.parametrize("d", [128, 1024])
+def test_pairwise_kernel_with_duplicate_rows(d, mode):
+    # Every x row repeats a q row, some with large norms: their squared
+    # distances cancel to about 0 and must clamp to >= 0.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    rng = np.random.default_rng(d + 1)
+    qn = rng.standard_normal((256, d)).astype(np.float32)
+    qn[::7] *= 1e3
+    xn = qn[rng.integers(0, 256, 700)]
+    q, x = torch.from_numpy(qn).cuda(), torch.from_numpy(xn).cuda()
+    got = _pairwise(mode, q, x, kernel=True)
+    want = _pairwise(mode, q, x, kernel=False)
+    torch.cuda.synchronize()
     assert_pairwise_close(got, want, q, x, mode)
 
 

@@ -6,7 +6,8 @@ Tolerance: the two sum in different orders (XLA's and torch's CPU matmuls),
 so the squared form is held within 1e-5 * (|q|^2 + |x|^2), the sqrt form
 within the square root of that bound (no relative error near 0) and
 neg-dot within 1e-5 * |q| * |x|; the tests on the card hold the kernel to
-these plain versions with the same bounds."""
+these plain versions with the same bounds. A numpy emulation of the
+kernel's 3xTF32 product shows those bounds hold for its design."""
 
 import inspect
 
@@ -107,3 +108,65 @@ def test_shape_errors():
         pairwise_l2(torch.zeros(3, 4), torch.zeros(5, 6))
     with pytest.raises(ValueError):
         pairwise_neg_dot(torch.zeros(3), torch.zeros(5, 3))
+
+
+def _tf32(v):
+    """float32 rounded to TF32 (10 explicit mantissa bits), to nearest with
+    ties away from zero, as the kernel's cvt.rna.tf32.f32."""
+    bits = np.asarray(v, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(v):
+    big = _tf32(v)
+    return big, _tf32(v - big)  # v - big is exact in float32
+
+
+def _emulate_kernel(q, x, mode):
+    """K4's arithmetic: per k8 step q_small.x_big, q_big.x_small, then
+    q_big.x_big added into float32 accumulators (products of TF32 values
+    are exact in float32); row norms and epilogue in float32."""
+    (qb, qs), (xb, xs) = _split(q), _split(x)
+    acc = np.zeros((q.shape[0], x.shape[0]), np.float32)
+    for k in range(0, q.shape[1], 8):
+        for a, b in ((qs, xb), (qb, xs), (qb, xb)):
+            acc = acc + a[:, k:k + 8] @ b[:, k:k + 8].T
+    if mode == "neg_dot":
+        return -acc
+    qn = np.sum(q * q, axis=1, dtype=np.float32)
+    xn = np.sum(x * x, axis=1, dtype=np.float32)
+    d2 = np.maximum(qn[:, None] + xn[None, :] - np.float32(2) * acc, np.float32(0))
+    return np.sqrt(d2) if mode == "l2" else d2
+
+
+def test_tf32_rounding_and_split():
+    # Ties round away from zero; big + small keeps v to about 2^-22 |v|.
+    one = np.float32(1)
+    tie = np.array([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -12], np.float32)
+    np.testing.assert_array_equal(_tf32(tie), np.array([1 + 2.0 ** -10, -(1 + 2.0 ** -10), one],
+                                                       np.float32))
+    v = np.random.default_rng(0).standard_normal(10000).astype(np.float32) * 10.0 ** \
+        np.random.default_rng(1).integers(-20, 20, 10000)
+    big, small = _split(v)
+    assert np.all(big.view(np.uint32) & 0x1FFF == 0) and np.all(small.view(np.uint32) & 0x1FFF == 0)
+    err = np.abs(v.astype(np.float64) - big.astype(np.float64) - small.astype(np.float64))
+    assert np.all(err <= 2.0 ** -21 * np.abs(v.astype(np.float64)))
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("d", [128, 768, 1024])
+def test_3xtf32_design_within_the_kernel_bound(d, mode):
+    # Normal rows, near-duplicates of q (squared distances near 0), exact
+    # duplicates, and rows scaled by 1e3 and 1e-3, against the plain version.
+    rng = np.random.default_rng(d)
+    q = rng.standard_normal((24, d)).astype(np.float32)
+    q[::5] *= np.float32(1e3)
+    x = rng.standard_normal((48, d)).astype(np.float32)
+    x[:8] = q[:8] + np.float32(1e-4) * rng.standard_normal((8, d)).astype(np.float32)
+    x[8:12] = q[8:12]
+    x[12:16] *= np.float32(1e3)
+    x[16:20] *= np.float32(1e-3)
+    want = _port(q, x, mode, (pairwise_l2_reference, pairwise_neg_dot_reference))
+    got = _emulate_kernel(q, x, mode)
+    assert got.dtype == np.float32
+    assert np.all(np.abs(got.astype(np.float64) - want) <= _bound(q, x, mode))
