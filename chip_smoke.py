@@ -13,7 +13,9 @@ Phases, each fatal on failure:
    (torch.profiler, beside the CUDA-event time of the wrapper calls), the
    plain version's time, its bound and the time of one PyTorch library call
    that computes the same function, where there is one. K1 (hop-merge) is
-   held bit for bit on both of its routes, K4 (pairwise tiles, 3xTF32 on
+   held bit for bit on both of its routes, K3 on both of its routes ("sums",
+   and "smallest", which selects each query's r best candidates without
+   writing the [B, N] sums; its time beside the chain it replaces), K4 (pairwise tiles, 3xTF32 on
    the tensor cores) within 1e-5 of the operands' squared norms (see
    assert_pairwise_close), K5 (row gather) bit for bit. Then smallest_k's two
    routes (stable sort, top-k on unique keys) at the paths' row widths: equal
@@ -27,8 +29,11 @@ Phases, each fatal on failure:
 4. config 4, bench_extra.py's PQ path on the port: 1,000,000 x 768 from the
    same mixture, LeannIndex.build_from_embeddings with 16 x 256 PQ, the
    two-level ladder of bench_extra.py (routing 65536, grouped ADC, fused
-   hop-merge) and search_pq_scan at rerank 128 and 256: recall@10 and QPS
-   per rung, exact distances, grouped == einsum and fused == inline.
+   hop-merge) and search_pq_scan at rerank 128 and 256 (K3's "smallest"
+   route) and 2048 (past its r, the "sums" route): recall@10 and QPS per
+   rung, exact distances, grouped == einsum and fused == inline, and
+   search_pq_scan's results equal to those of the chain it replaced (K3
+   "sums" + finalise + smallest_k), with the peak device memory of each.
 5. the gather bench (islands_tpu_torch.benches.gather_bench.main at the
    reference bench's sizes, kernel K5) and the ops API: brute-force top-10
    of phase 3's queries through ops.pairwise_l2 / pairwise_neg_dot with
@@ -57,6 +62,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import json
 import math
 import pathlib
@@ -64,6 +70,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import unittest.mock
 
 import torch
 import torch.nn.functional as F
@@ -81,17 +88,25 @@ from islands_tpu_torch.core.config import (
 )
 from islands_tpu_torch.core.embedding import InMemoryEmbeddingProvider
 from islands_tpu_torch.core.hnsw import HnswIndex
+from islands_tpu_torch.core import leann as leann_mod
 from islands_tpu_torch.core.leann import LeannIndex
+from islands_tpu_torch.core.pq import pq_scan, pq_scan_smallest
 from islands_tpu_torch.core.search import StoredSearcher
 from islands_tpu_torch.core.searchapi import Searcher
 from islands_tpu_torch.core.storage import load_hnsw, load_index, save_hnsw, save_index
 from islands_tpu_torch.ops import _cuda, merge
 from islands_tpu_torch.ops import proj as proj_ops
 from islands_tpu_torch.ops.adc import (
+    SMALLEST_MAX_R,
     adc_scan,
     adc_scan_reference,
+    adc_scan_smallest,
+    adc_scan_smallest_reference,
+    finalize_adc,
     gated_adc_reference,
     gated_adc_sums,
+    smallest_max_r,
+    smallest_tiles,
 )
 from islands_tpu_torch.ops.distance import brute_force_topk, prep_corpus, rowwise_distance
 from islands_tpu_torch.ops.gather import row_gather, row_gather_reference
@@ -114,7 +129,8 @@ SMEM_LOOKUPS_PER_SM_CLOCK = 32
 
 # Each kernel: its wrapper (whose `launches` counts launches), source, the
 # TPU kernel it replaces and the CUDA kernel's name in the profiler (K1's
-# timed shapes take its warp route). K4a and K4b are two modes of one source.
+# timed shapes take its warp route). K4a and K4b are two modes of one source,
+# K3's "sums" and "smallest" two routes of one.
 KERNELS = {
     "hop_merge": (hop_merge, "islands_tpu_torch/csrc/hop_merge.cu",
                   "islands_tpu/ops/pallas_kernels.py:412", "hop_merge_warp_kernel"),
@@ -122,6 +138,8 @@ KERNELS = {
                   "islands_tpu/ops/pallas_kernels.py:135", "gated_adc_kernel"),
     "adc_scan": (adc_scan, "islands_tpu_torch/csrc/adc_scan.cu",
                  "islands_tpu/ops/pallas_kernels.py:52", "adc_scan_kernel"),
+    "adc_scan_smallest": (adc_scan_smallest, "islands_tpu_torch/csrc/adc_scan.cu",
+                          "islands_tpu/ops/pallas_kernels.py:52", "adc_scan_smallest_kernel"),
     "pairwise_l2": (pairwise_l2, "islands_tpu_torch/csrc/pairwise.cu",
                     "islands_tpu/ops/pallas_kernels.py:248", "pairwise_kernel<0>"),
     "pairwise_neg_dot": (pairwise_neg_dot, "islands_tpu_torch/csrc/pairwise.cu",
@@ -151,7 +169,9 @@ C4_PQ = PQConfig(num_subquantizers=16, num_centroids=256, training_iterations=15
 C4_RUNGS = [(128, 16, 2, 16, 64), (128, 14, 2, 24, 64), (128, 18, 2, 16, 64),
             (128, 20, 2, None, 0)]
 C4_ROUTING = 65536
-PQ_SCAN_QUERIES, PQ_SCAN_RERANKS = 512, (128, 256)
+# search_pq_scan's reranks: 128 and 256 take K3's "smallest" route, 2048
+# (past SMALLEST_MAX_R) the "sums" route and smallest_k.
+PQ_SCAN_QUERIES, PQ_SCAN_RERANKS = 512, (128, 256, 2048)
 AB_QUERIES = 512  # queries for the grouped/einsum and fused/inline checks
 
 # K4's shapes (B, N, d): brute_force_topk's chunks at configs 2 and 4, the
@@ -222,10 +242,8 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def kernel_device_ms(fn, kernel: str, reps: int) -> float:
-    """Mean device time per launch of the CUDA kernel whose name contains
-    `kernel`, over `reps` calls of fn, from torch.profiler. Raises if the
-    profiler saw no such kernel."""
+def _device_events(fn, reps: int) -> list:
+    """torch.profiler's device kernels over `reps` calls of fn, after one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -235,12 +253,29 @@ def kernel_device_ms(fn, kernel: str, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and kernel in e.key]
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def kernel_device_ms(fn, kernel: str, reps: int) -> float:
+    """Mean device time per launch of the CUDA kernel whose name contains
+    `kernel`, over `reps` calls of fn, from torch.profiler. Raises if the
+    profiler saw no such kernel."""
+    hits = [e for e in _device_events(fn, reps) if kernel in e.key]
     count = sum(e.count for e in hits)
     if count == 0:
         raise AssertionError(f"the profiler saw no launch of {kernel}")
     return sum(e.self_device_time_total for e in hits) / count / 1e3
+
+
+def call_device_ms(fn, kernel: str, reps: int) -> tuple[float, float]:
+    """Device time per call of fn, all its kernels together, and that of the
+    kernels whose name contains `kernel`, from torch.profiler."""
+    events = _device_events(fn, reps)
+    hits = [e for e in events if kernel in e.key]
+    if not hits:
+        raise AssertionError(f"the profiler saw no launch of {kernel}")
+    return (sum(e.self_device_time_total for e in events) / reps / 1e3,
+            sum(e.self_device_time_total for e in hits) / reps / 1e3)
 
 
 def hop_merge_inputs(gen, b, e, a, ties):
@@ -427,6 +462,141 @@ def phase_adc(sms: int, clock_hz: float) -> tuple[dict, dict]:
                         bound_ms=bound[0], bound_by=bound[1], library_ms=library_ms,
                         library="torch.nn.functional.embedding_bag(mode='sum')"))
     return out[0], out[1]
+
+
+# K3 "smallest" against its plain version, (B, N, S, K, code type, r,
+# metric, tables): the PQ scan's shape at rerank 128 and 256, N below one
+# tile of the kernel, r = N, B = 4096, int32 codes at K = 512, S = 8, each
+# metric, both sides of SMALLEST_MAX_R (r past it takes the "sums" route).
+# Tables as smallest_inputs makes them: the euclidean cases take
+# non-negative ones, as PQ's squared-distance tables are, but for one
+# "tied" case whose negative sums exercise the clamp.
+SMALLEST_CASES = [
+    (512, 1_000_000, 16, 256, torch.uint8, 256, "euclidean", "square"),
+    (512, 1_000_000, 16, 256, torch.uint8, 128, "euclidean", "tied+"),
+    (7, 5000, 16, 256, torch.uint8, 100, "cosine", "tied"),
+    (3, 700, 16, 256, torch.uint8, 700, "dotproduct", "tied"),
+    (4096, 65536, 16, 256, torch.uint8, 256, "euclidean", "square"),
+    (33, 40000, 16, 512, torch.int32, 64, "manhattan", "tied"),
+    (9, 20000, 8, 256, torch.uint8, 200, "euclidean", "tied"),
+    (9, 20000, 8, 256, torch.uint8, 200, "euclidean", "tied+"),
+    (6, 33000, 16, 256, torch.uint8, 300, "cosine", "normal"),
+    (6, 33000, 16, 256, torch.uint8, 300, "dotproduct", "tied"),
+    (6, 33000, 16, 256, torch.uint8, 300, "manhattan", "normal"),
+    (17, 50000, 16, 256, torch.uint8, SMALLEST_MAX_R, "euclidean", "tied+"),
+    (17, 50000, 16, 256, torch.uint8, SMALLEST_MAX_R + 1, "euclidean", "tied+"),
+]
+
+
+def smallest_inputs(gen, b, s, k, n, dtype, kind):
+    """Tables [B, S, K] and codes [N, S] on the card for K3's "smallest"
+    route. "normal": adc_inputs' randn tables; "square": their squares,
+    non-negative as PQ's squared-distance tables are, so euclidean distances
+    are positive and ordered; "tied" and "tied+": multiples of 1/4 in [-2, 2)
+    and [0, 2) holding -0.0 beside +0.0 (many equal distances), with codes in
+    which every seventh row repeats a random row: equal keys but for the id,
+    inside and across the kernel's tiles."""
+    if kind in ("normal", "square"):
+        tables, codes = adc_inputs(gen, b, s, k, (n,), dtype)
+        return (tables * tables if kind == "square" else tables), codes
+    dev = "cuda"
+    low = -8 if kind == "tied" else 0
+    tables = torch.randint(low, 8, (b, s, k), generator=gen, device=dev).float() / 4
+    neg = (tables == 0) & (torch.rand((b, s, k), generator=gen, device=dev) < 0.5)
+    tables = torch.where(neg, -0.0, tables)
+    codes = torch.randint(0, k, (n, s), generator=gen, device=dev, dtype=torch.int32).to(dtype)
+    dup = codes[::7].shape[0]
+    codes[::7] = codes[torch.randint(0, n, (dup,), generator=gen, device=dev)]
+    return tables, codes
+
+
+def smallest_err(tables, codes, got, want, metric) -> float:
+    """The largest |d[got] - d[want]| over the rows of positions got and
+    want, d being the plain finalised distances: 0 when the two select
+    equally far candidates."""
+    if not got.numel():
+        return 0.0
+    d = finalize_adc(adc_scan_reference(tables, codes), metric)
+    return float((d.gather(1, got) - d.gather(1, want)).abs().max())
+
+
+def adc_scan_smallest_bound_ms(b, n, s, k, r, sms, clock_hz) -> tuple[float, str]:
+    """K3 "smallest"'s least time: its B*N*S lookups (as adc_scan_bound_ms)
+    against the tables, codes, the tiles' key lists and the positions over
+    HBM; the larger, and which."""
+    lists = b * smallest_tiles(b, n, s, k, r) * r * 8
+    bytes_ms = (b * s * k * 4 + n * s + lists + b * r * 8) / HBM_BYTES_PER_S * 1e3
+    ops_ms = b * n * s / (SMEM_LOOKUPS_PER_SM_CLOCK * sms * clock_hz) * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def smallest_chain(tables, codes, r, metric):
+    """What K3 "smallest" replaces: K3 "sums", the finalise and smallest_k."""
+    return merge.smallest_k(finalize_adc(adc_scan(tables, codes), metric), r)
+
+
+def phase_adc_smallest(sms: int, clock_hz: float) -> dict:
+    """K3's "smallest" route against its plain version, bit for bit (the same
+    positions in the same order) at SMALLEST_CASES, with the route each case
+    launched; then its device time at the PQ scan's shape, merge included,
+    beside its bound, its plain version and the chain it replaces."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    max_err = 0.0
+    for b, n, s, k, dt, r, metric, kind in SMALLEST_CASES:
+        tables, codes = smallest_inputs(gen, b, s, k, n, dt, kind)
+        before = adc_scan_smallest.launches
+        got = adc_scan_smallest(tables, codes, r, metric)
+        want = adc_scan_smallest_reference(tables, codes, r, metric)
+        torch.cuda.synchronize()
+        route = "smallest" if adc_scan_smallest.launches > before else "sums"
+        desc = f"B={b} N={n} S={s} K={k} {dt} r={r} {metric} {kind}"
+        if route != ("smallest" if r <= SMALLEST_MAX_R else "sums"):
+            raise AssertionError(f"adc_scan_smallest took the {route} route at {desc}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"adc_scan_smallest differs from its plain version at {desc}")
+        max_err = max(max_err, smallest_err(tables, codes, got, want, metric))
+        log(f"  adc_scan_smallest == plain version at {desc} ({route} route)")
+        del tables, codes, got, want
+    if smallest_max_r() != SMALLEST_MAX_R:
+        raise AssertionError(f"the kernel's largest r is {smallest_max_r()}, not {SMALLEST_MAX_R}")
+    b, n, s, k = 512, 1_000_000, 16, 256
+    tables, codes = smallest_inputs(gen, b, s, k, n, torch.uint8, "square")
+    timings = []
+    for r in PQ_SCAN_RERANKS[:2]:
+        def fn():
+            return adc_scan_smallest(tables, codes, r, "euclidean")
+
+        def chain():
+            return smallest_chain(tables, codes, r, "euclidean")
+
+        got, want = fn(), chain()
+        if not torch.equal(got, want):
+            raise AssertionError(f"adc_scan_smallest differs from the chain at r={r}")
+        max_err = max(max_err, smallest_err(tables, codes, got, want, "euclidean"))
+        del got, want
+        event_ms = time_ms(fn, 20)
+        ms, kernel_ms = call_device_ms(fn, KERNELS["adc_scan_smallest"][3], 20)
+        chain_ms = time_ms(chain, 5)
+        chain_device_ms, _ = call_device_ms(chain, KERNELS["adc_scan"][3], 5)
+        plain_ms = time_ms(lambda: adc_scan_smallest_reference(tables, codes, r, "euclidean"), 2)
+        bound = adc_scan_smallest_bound_ms(b, n, s, k, r, sms, clock_hz)
+        log(f"  adc_scan_smallest B={b} N={n} S={s} K={k} r={r} (squared randn tables): "
+            f"{ms:.4f} ms on the device (kernel {kernel_ms:.4f}, merge {ms - kernel_ms:.4f}; "
+            f"{event_ms:.4f} ms per wrapper call by CUDA events), plain {plain_ms:.4f} ms, bound "
+            f"{bound[0]:.4f} ms ({bound[1]}), the chain it replaces {chain_device_ms:.4f} ms on "
+            f"the device ({chain_device_ms / ms:.2f}x) and {chain_ms:.4f} ms by CUDA events "
+            f"({chain_ms / event_ms:.2f}x), library: none")
+        timings.append(dict(r=r, ms=ms, kernel_ms=kernel_ms, merge_ms=ms - kernel_ms,
+                            event_ms=event_ms, plain_ms=plain_ms, chain_ms=chain_ms,
+                            chain_device_ms=chain_device_ms, bound_ms=bound[0],
+                            bound_by=bound[1]))
+    t = timings[-1]
+    return dict(max_abs_err=max_err, ms=t["ms"], kernel_ms=t["kernel_ms"],
+                merge_ms=t["merge_ms"], event_ms=t["event_ms"], plain_ms=t["plain_ms"],
+                chain_ms=t["chain_ms"], chain_device_ms=t["chain_device_ms"],
+                bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
+                library="none: no single PyTorch call computes it",
+                shape=[b, n, s, k, t["r"]], timings=timings)
 
 
 def phase_smallest_k() -> list:
@@ -838,7 +1008,8 @@ def phase_config4() -> dict:
             f"QPS median {qps[len(qps) // 2]:.1f}, min {qps[0]:.1f}, max {qps[-1]:.1f}")
     launches = read_launches()
     log(f"  kernel launches on the config-4 path: {launches}")
-    for name in ("hop_merge", "gated_adc", "adc_scan"):
+    # K3 "smallest" at rerank 128 and 256, K3 "sums" at 2048.
+    for name in ("hop_merge", "gated_adc", "adc_scan_smallest", "adc_scan"):
         if launches[name] <= 0:
             raise AssertionError(f"the config-4 path never launched the {name} kernel")
 
@@ -857,11 +1028,56 @@ def phase_config4() -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     bpv = idx.storage_bytes() / n
     log(f"  index bytes/vector {bpv:.2f}; peak device memory {peak_gb:.2f} GB")
+    against_chain = pq_scan_against_chain(idx, q_scan, provider)
     return dict(n=n, dim=dim, queries=n_queries, pq=dict(subquantizers=16, centroids=256),
                 build_seconds=build_s, build_vectors_per_s=n / build_s,
                 index_bytes_per_vector=bpv, peak_device_gb=peak_gb, rungs=rungs,
-                reported_rung=reported["rung"], pq_scan=scans, headline_profile=profile,
+                reported_rung=reported["rung"], pq_scan=scans,
+                pq_scan_against_chain=against_chain, headline_profile=profile,
                 launches=launches)
+
+
+def _chain_candidates(pq, q, codes, r, metric=None):
+    """search_pq_scan's selection before K3's "smallest" route: pq_scan's
+    [B, N] distances (K3 "sums", finalised), then smallest_k."""
+    return merge.smallest_k(pq_scan(pq, q, codes, metric=metric), r)
+
+
+def pq_scan_against_chain(idx, q, provider) -> list:
+    """search_pq_scan at the reranks of K3's "smallest" route against the
+    same call selecting by the chain it replaced: the same ids and
+    distances, and the device memory each call adds at its peak, which must
+    stay below one [B, N] f32 matrix."""
+    out = []
+    metric = idx.config.metric
+    for rerank in PQ_SCAN_RERANKS[:2]:
+        cand = pq_scan_smallest(idx.pq, q, idx.pq_codes, rerank, metric=metric)
+        if not torch.equal(cand, _chain_candidates(idx.pq, q, idx.pq_codes, rerank, metric)):
+            raise AssertionError(f"pq_scan_smallest differs from the chain at rerank {rerank}")
+        del cand
+        results, peaks = {}, {}
+        for what in ("smallest", "chain"):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            with (unittest.mock.patch.object(leann_mod, "pq_scan_smallest", _chain_candidates)
+                  if what == "chain" else contextlib.nullcontext()):
+                results[what] = idx.search_pq_scan(q, k=10, provider=provider, rerank=rerank)
+            torch.cuda.synchronize()
+            peaks[what] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        (d, ids), (cd, cids) = results["smallest"], results["chain"]
+        if not (torch.equal(d, cd) and torch.equal(ids, cids)):
+            raise AssertionError(f"search_pq_scan differs from the chain at rerank {rerank}")
+        matrix_gb = q.shape[0] * idx.num_nodes * 4 / 1e9
+        if peaks["smallest"] >= matrix_gb:
+            raise AssertionError(f"search_pq_scan at rerank {rerank} added "
+                                 f"{peaks['smallest']:.3f} GB, a [B, N] matrix's worth")
+        log(f"  search_pq_scan == the chain on {q.shape[0]} queries at rerank {rerank}; "
+            f"peak device memory added {peaks['smallest']:.3f} GB, the chain's "
+            f"{peaks['chain']:.3f} GB ([B, N] f32: {matrix_gb:.3f} GB); candidates equal")
+        out.append(dict(rerank=rerank, peak_added_gb=peaks["smallest"],
+                        chain_peak_added_gb=peaks["chain"]))
+    return out
 
 
 def phase_gather_bench() -> dict:
@@ -1090,7 +1306,13 @@ def build_kernels() -> None:
     smem = {"hop_merge": ("none on the warp route (E=120, A=64 or 128: registers and "
                           "shuffles); E*12 + L*8 B on the block route"),
             "gated_adc": f"{16 * 256 * 4} B at S=16, K=256",
-            "adc_scan": f"{4 * 16 * 256 * 4} B at 4 queries per block, S=16, K=256",
+            "adc_scan": (f"route sums: {4 * 16 * 256 * 4} B at 4 queries per block, S=16, "
+                         f"K=256; route smallest: the same tables and 4 lists of "
+                         f"next_pow2(r) kept and max(512, next_pow2(r)) new 8-byte keys "
+                         f"({4 * 16 * 256 * 4 + 4 * 768 * 8} B at r = 256, "
+                         f"{4 * 16 * 256 * 4 + 4 * 2048 * 8} B at r = 1024), its merge "
+                         f"next_pow2(tiles) lists of next_pow2(r) keys "
+                         f"({2 * 256 * 8} B at B = 512, N = 1M, r = 256: 2 tiles)"),
             "pairwise": (f"{3 * 2 * 128 * 32 * 4 + 2 * 128 * 32 * 4 + 128 * 4 + 1024} B: "
                          "three stages of 128x32 q and x slices, two x small tiles, the x "
                          "norms and 1 KB of alignment (one block per SM)"),
@@ -1132,6 +1354,7 @@ def main() -> int:
     log("phase 2: kernels against their plain versions")
     k1 = phase_hop_merge()
     k2, k3 = phase_adc(sms, clock_hz)
+    k3s = phase_adc_smallest(sms, clock_hz)
     k4a, k4b = phase_pairwise()
     k5 = phase_row_gather()
     topk = phase_smallest_k()
@@ -1164,7 +1387,7 @@ def main() -> int:
              "gather_bench": bench, "lifecycle": lifecycle, "hnsw": hnsw}
     kernels = []
     for name, fig in (("hop_merge", k1), ("gated_adc", k2), ("adc_scan", k3),
-                      ("pairwise_l2", k4a), ("pairwise_neg_dot", k4b), ("row_gather", k5)):
+                      ("adc_scan_smallest", k3s), ("pairwise_l2", k4a), ("pairwise_neg_dot", k4b), ("row_gather", k5)):
         _, source, replaces, _ = KERNELS[name]
         by_path = {path: out["launches"][name] for path, out in paths.items()}
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,

@@ -9,7 +9,8 @@ provider:
   sketch gate (only the promoted candidates are recomputed);
 - `search_two_level`: PQ-ADC gated beam search (core/search.py
   `batched_two_level_search`; kernels K2 and, with hop_merge="fused", K1);
-- `search_pq_scan`: a full ADC scan (kernel K3), then an exact rerank.
+- `search_pq_scan`: a full ADC scan that keeps each query's best `rerank`
+  candidates (kernel K3's "smallest" route), then an exact rerank.
 `extend` appends items by insertion waves (build.extend_graph), the
 incremental re-index of a repository sync.
 
@@ -30,7 +31,7 @@ from islands_tpu_torch.core.pq import (
     build_inline_codes,
     gated_block_scorer_for,
     gated_prep_for,
-    pq_scan,
+    pq_scan_smallest,
 )
 from islands_tpu_torch.core.search import (
     batched_search,
@@ -335,8 +336,9 @@ class LeannIndex:
 
     def search_pq_scan(self, queries, k: int, provider: EmbeddingProvider,
                        rerank: int | None = None):
-        """Graph-free search: ADC-scan ALL codes (kernel K3), take the
-        `rerank` best approximate candidates (lower id first on ties),
+        """Graph-free search: ADC-scan ALL codes and take the `rerank` best
+        approximate candidates (lower id first on ties; kernel K3's
+        "smallest" route, which writes no [B, N] distances),
         score them exactly through `provider`, return the top k. Pads with
         (+inf, -1) when the corpus is smaller than k."""
         self._require_graph()
@@ -348,9 +350,8 @@ class LeannIndex:
         rerank = min(max(rerank, k), self.num_nodes)
         k_eff = min(k, rerank)
 
-        d_approx = pq_scan(self.pq, q, self.pq_codes, metric=self.config.metric)
-        cand = smallest_k(d_approx, rerank)  # lax.top_k(-d, rerank)
-        del d_approx
+        # lax.top_k(-pq_scan(...), rerank)
+        cand = pq_scan_smallest(self.pq, q, self.pq_codes, rerank, metric=self.config.metric)
         scorer = make_recompute_scorer(self.config.metric)
         qp = dist_ops.prep_query(q, self.config.metric)
         d_exact = scorer(provider.embed, qp, cand, torch.ones_like(cand, dtype=torch.bool))

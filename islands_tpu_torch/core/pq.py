@@ -19,7 +19,8 @@ Distances: `asymmetric_distance` is sqrt(sum over subspaces of subspace L2^2);
 ADC tables hold squared per-subspace distances and `table_distance` is
 gather + sum + sqrt. The two-level search uses metric-scale tables
 (`_build_metric_tables`) through `gated_block_scorer_for`, whose "grouped"
-scorer launches kernel K2; `pq_scan` launches kernel K3.
+scorer launches kernel K2; `pq_scan` launches kernel K3's "sums" route and
+`pq_scan_smallest` its "smallest" route.
 
 Codes are uint8 up to 256 centroids. Above that they are int32: torch has
 no uint16 indexing, and int32 holds every id up to the 65,536-centroid cap.
@@ -39,6 +40,8 @@ from islands_tpu_torch.device import resolve_device, to_device
 from islands_tpu_torch.ops import distance as dist_ops
 from islands_tpu_torch.ops.adc import (
     adc_scan,
+    adc_scan_smallest,
+    finalize_adc,
     gated_adc_reference,
     gated_adc_sums,
     rows_table_sums,
@@ -160,10 +163,16 @@ def _split_subspaces(x: torch.Tensor, num_sq: int) -> torch.Tensor:
     return x.reshape(n, num_sq, d // num_sq).transpose(0, 1)
 
 
+def _scan_codes(codes: torch.Tensor) -> torch.Tensor:
+    """Codes as K3 takes them: wider than uint8 they go as int32, as the
+    reference casts them."""
+    return codes if codes.dtype == torch.uint8 else codes.to(torch.int32)
+
+
 def _scan_sums(tables: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """tables [B, S, k], codes [n, S] -> ADC sums [B, n], kernel K3 on the
-    card. Codes wider than uint8 go as int32, as the reference casts them."""
-    return adc_scan(tables, codes if codes.dtype == torch.uint8 else codes.to(torch.int32))
+    card."""
+    return adc_scan(tables, _scan_codes(codes))
 
 
 def _table_distance(tables: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
@@ -299,17 +308,33 @@ class ProductQuantizer:
         return num_vectors * self.config.bytes_per_vector + cb.centroids.numel() * 4
 
 
-def pq_scan(pq: ProductQuantizer, queries, codes: torch.Tensor, metric=None) -> torch.Tensor:
-    """ADC scan of ALL codes: queries [B, d] -> distances [B, n] on the
-    exact metric's scale. The sums are kernel K3 on the card."""
+def _scan_tables(pq: ProductQuantizer, queries, metric) -> tuple[torch.Tensor, str]:
+    """The PQ scan's metric tables of queries [B, d] (or [d]), and the
+    metric's name."""
     cb = pq._require_trained()
     mname = _metric_name(metric) if metric is not None else "euclidean"
     q2 = to_device(queries, pq.device, torch.float32)
     q2 = q2 if q2.dim() > 1 else q2[None]
     if mname == "cosine":  # tables are inner products; cosine needs |q| = 1
         q2 = dist_ops.normalize(q2)
-    tables = _build_metric_tables(q2, cb.centroids, mname)
-    return _finalize_adc(_scan_sums(tables, to_device(codes, pq.device)), mname)
+    return _build_metric_tables(q2, cb.centroids, mname), mname
+
+
+def pq_scan(pq: ProductQuantizer, queries, codes: torch.Tensor, metric=None) -> torch.Tensor:
+    """ADC scan of ALL codes: queries [B, d] -> distances [B, n] on the
+    exact metric's scale. The sums are kernel K3 on the card."""
+    tables, mname = _scan_tables(pq, queries, metric)
+    return finalize_adc(_scan_sums(tables, to_device(codes, pq.device)), mname)
+
+
+def pq_scan_smallest(pq: ProductQuantizer, queries, codes: torch.Tensor, r: int,
+                     metric=None) -> torch.Tensor:
+    """Positions [B, r] int64 of each query's r smallest pq_scan distances,
+    in `lax.top_k(-d, r)` order (ascending, lower position first on ties),
+    equal to smallest_k(pq_scan(...), r). On the card kernel K3's
+    "smallest" route selects them without writing the [B, n] distances."""
+    tables, mname = _scan_tables(pq, queries, metric)
+    return adc_scan_smallest(tables, _scan_codes(to_device(codes, pq.device)), r, mname)
 
 
 def make_pq_scorer(pq: ProductQuantizer, codes: torch.Tensor):
@@ -376,17 +401,8 @@ def build_inline_codes(neighbors: torch.Tensor, codes: torch.Tensor) -> torch.Te
     return blocks.reshape(neighbors.shape[0], -1)
 
 
-def _finalize_adc(s: torch.Tensor, metric_name: str) -> torch.Tensor:
-    """ADC sums -> distances on the exact metric's scale."""
-    if metric_name == "cosine":
-        return 1.0 + s
-    if metric_name == "euclidean":
-        return torch.sqrt(torch.clamp(s, min=0.0))
-    return s  # dotproduct / manhattan: sums already on the metric scale
-
-
 def _gated_block_scorer(tables, block_codes, valid, *, metric_name: str, sums):
-    return torch.where(valid, _finalize_adc(sums(tables, block_codes), metric_name), _INF)
+    return torch.where(valid, finalize_adc(sums(tables, block_codes), metric_name), _INF)
 
 
 def gated_block_scorer_for(metric, impl: str = "grouped"):

@@ -12,10 +12,15 @@ import pytest
 import torch
 
 from islands_tpu_torch.ops.adc import (
+    SMALLEST_MAX_R,
     adc_scan,
     adc_scan_reference,
+    adc_scan_smallest,
+    adc_scan_smallest_reference,
     gated_adc_reference,
     gated_adc_sums,
+    smallest_max_r,
+    smallest_tiles,
 )
 from islands_tpu_torch.ops.gather import row_gather, row_gather_reference
 from islands_tpu_torch.ops.hop_merge import HOLE, hop_merge, hop_merge_reference
@@ -243,6 +248,94 @@ def test_adc_scan_kernel_refuses_tables_past_shared_memory():
     tables, codes = _adc_inputs(np.random.default_rng(0), 2, 16, 4096, (10,), np.int32)
     with pytest.raises(RuntimeError):
         adc_scan(tables, codes)
+
+
+def _smallest_inputs(rng, b, s, k, n, dtype, kind):
+    """Tables and codes [N, S] for K3's "smallest" route. "normal": randn
+    tables, about half of all sums <= 0 (the euclidean clamp sends them to
+    0); "square": squared randn, non-negative as PQ's squared-distance tables
+    are, so the euclidean distances are positive and ordered; "tied" and
+    "tied+": multiples of 1/4 in [-2, 2) and [0, 2), with -0.0 beside +0.0
+    (many equal distances), and codes in which every seventh row repeats a
+    row far away (equal keys but for the id, in other tiles)."""
+    if kind in ("normal", "square"):
+        t, c = _adc_inputs(rng, b, s, k, (n,), dtype)
+        return (t * t if kind == "square" else t), c
+    tables = (rng.integers(-8 if kind == "tied" else 0, 8, (b, s, k)) / 4).astype(np.float32)
+    zero = tables == 0
+    tables[zero] = np.where(rng.random(np.sum(zero)) < 0.5, -0.0, 0.0)
+    codes = rng.integers(0, k, (n, s)).astype(dtype)
+    codes[::7] = codes[rng.integers(0, n, len(codes[::7]))]
+    return torch.from_numpy(tables).cuda(), torch.from_numpy(codes).cuda()
+
+
+# (B, N, S, K, code type, r, metric, tables): the PQ scan's shape at rerank
+# 128 and 256, N below one tile, r = N, B = 4096, int32 codes, S = 8, both
+# sides of SMALLEST_MAX_R; tables as _smallest_inputs makes them. Euclidean
+# cases take non-negative tables but one each of "normal" and "tied", which
+# exercise the clamp.
+SMALLEST_CASES = [
+    (512, 1_000_000, 16, 256, np.uint8, 256, "euclidean", "square"),
+    (512, 1_000_000, 16, 256, np.uint8, 128, "euclidean", "tied+"),
+    (7, 5000, 16, 256, np.uint8, 100, "cosine", "tied"),
+    (3, 700, 16, 256, np.uint8, 700, "dotproduct", "tied"),
+    (4096, 65536, 16, 256, np.uint8, 256, "euclidean", "square"),
+    (33, 40000, 16, 512, np.int32, 64, "manhattan", "tied"),
+    (9, 20000, 8, 256, np.uint8, 200, "euclidean", "tied"),
+    (9, 20000, 8, 256, np.uint8, 200, "euclidean", "tied+"),
+    (11, 300_000, 16, 256, np.uint8, 256, "euclidean", "normal"),
+    (5, 100_000, 16, 256, np.uint8, 1, "cosine", "normal"),
+    (17, 50000, 16, 256, np.uint8, SMALLEST_MAX_R, "euclidean", "tied+"),
+    (17, 50000, 16, 256, np.uint8, SMALLEST_MAX_R + 1, "euclidean", "tied+"),
+    (6, 33000, 16, 256, np.uint8, 300, "dotproduct", "normal"),
+    (6, 33000, 16, 256, np.uint8, 300, "manhattan", "tied"),
+    (6, 33000, 16, 256, np.uint8, 300, "cosine", "tied"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,s,k,dtype,r,metric,tables", SMALLEST_CASES)
+def test_adc_scan_smallest_kernel_matches_plain_version(b, n, s, k, dtype, r, metric, tables):
+    # The same positions in the same order, ties included. r <= SMALLEST_MAX_R
+    # launches the route's own kernel; a larger r the "sums" kernel.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    rng = np.random.default_rng(b + n + r)
+    t, c = _smallest_inputs(rng, b, s, k, n, dtype, tables)
+    want = adc_scan_smallest_reference(t, c, r, metric)
+    before = adc_scan_smallest.launches, adc_scan.launches
+    got = adc_scan_smallest(t, c, r, metric)
+    torch.cuda.synchronize()
+    own = r <= SMALLEST_MAX_R
+    assert (adc_scan_smallest.launches, adc_scan.launches) == (before[0] + own,
+                                                               before[1] + (not own))
+    assert got.dtype == torch.int64 and got.shape == (b, r)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_adc_scan_smallest_largest_r_is_the_kernels():
+    # SMALLEST_MAX_R states the kernel's kMaxR, which decides the route.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    assert smallest_max_r() == SMALLEST_MAX_R
+    assert smallest_tiles(4, 5000, 16, 256, SMALLEST_MAX_R) > 0
+    assert smallest_tiles(4, 5000, 16, 256, SMALLEST_MAX_R + 1) == 0
+
+
+@pytest.mark.cuda
+def test_adc_scan_smallest_kernel_on_empty_and_wide_inputs():
+    # B = 0 and r = 0 launch nothing; int32 tables of one query per block.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    t, c = _adc_inputs(np.random.default_rng(3), 0, 16, 256, (100,))
+    assert adc_scan_smallest(t, c, 10, "euclidean").shape == (0, 10)
+    t, c = _adc_inputs(np.random.default_rng(4), 3, 16, 256, (100,))
+    assert adc_scan_smallest(t, c, 0, "euclidean").shape == (3, 0)
+    t, c = _adc_inputs(np.random.default_rng(5), 6, 8, 4096, (30000,), np.int32)
+    got = adc_scan_smallest(t, c, 500, "dotproduct")
+    torch.cuda.synchronize()
+    assert torch.equal(got, adc_scan_smallest_reference(t, c, 500, "dotproduct"))
 
 
 def _pairwise_inputs(rng, b, n, d):

@@ -105,7 +105,7 @@ def test_search_two_level_matches_reference(state, case):
     assert state["port"].last_recompute_fraction == state["ref"].last_recompute_fraction
 
 
-@pytest.mark.parametrize("rerank", [32, 64])
+@pytest.mark.parametrize("rerank", [32, 64, N])
 def test_search_pq_scan_matches_reference(state, rerank):
     want = state["ref"].search_pq_scan(state["q"], k=10, provider=state["jprov"],
                                        rerank=rerank)

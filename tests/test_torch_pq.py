@@ -168,6 +168,18 @@ def test_pq_scan_matches(carried, metric):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("metric", METRICS)
+def test_pq_scan_smallest_is_the_scan_s_top_k(carried, metric):
+    # The selection of the reference's search_pq_scan: lax.top_k(-d, r) over
+    # pq_scan's distances, here smallest_k over the port's own.
+    _, port, tcodes, _, _, q = carried
+    tq = torch.from_numpy(q)
+    d = tpq.pq_scan(port, tq, tcodes, metric=TM(metric))
+    for r in (1, 40, N):
+        got = tpq.pq_scan_smallest(port, tq, tcodes, r, metric=TM(metric))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jax.lax.top_k(-d.numpy(), r)[1]))
+
+
 def test_make_pq_scorer_matches(carried):
     ref, port, tcodes, jcodes, _, q = carried
     ids = np.random.default_rng(10).integers(-1, N, (q.shape[0], 24)).astype(np.int32)
