@@ -49,8 +49,22 @@ Phases, each fatal on failure:
    phase 3's headline rung must keep recall@10 >= 0.90.
 7. HNSW on the same corpus: HnswIndex build, search at ef 64 and 128,
    save_hnsw / load_hnsw (identical results), and Searcher == index.search.
+8. config 3, LEANN recompute search with the encoder on the card
+   (bench_extra.py's config 3, nothing cut): 131,072 seeded chunks of 64
+   token ids, minilm-l6 in bfloat16 behind the centred
+   EncoderEmbeddingProvider, LeannIndex.build, then the sketch gate at ef 48
+   / promote 32 / 36, 33 and 30 hops and gate "none" at ef 64: recall@10,
+   QPS (median of 3 passes), recompute fraction and encodes/s per rung
+   (i36 must reach 0.90, gate "none" 0.98); a profile of one gated pass; the
+   encoder alone (texts/s, tokens/s, share of the bf16 peak); the card's
+   encode of 256 rows against the port's float32 forward on the CPU.
+9. config 1, the checkout's own source (bench_extra.py's config 1): the
+   native loader's chunks equal to the Python chunker's (the loader must
+   build), bge-base in bfloat16, LeannIndex.build and the sketch gate at
+   ef 96 on the first 256 chunks: recall@10 (>= 0.90), QPS, recompute
+   fraction, encodes/s; the card's encode of 64 rows against the CPU's.
 The kernels' launch counts are zeroed just before each path and read just
-after it.
+after it; phases 8 and 9 launch none of them.
 
 Prints a JSON line of path figures, one of kernel figures, the card's name
 and power limit, and last `{"ok": true, "device": {...}}`. Exits non-zero,
@@ -63,6 +77,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import dataclasses
 import json
 import math
 import pathlib
@@ -72,6 +87,7 @@ import tempfile
 import time
 import unittest.mock
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -86,7 +102,7 @@ from islands_tpu_torch.core.config import (
     PQConfig,
     SearchConfig,
 )
-from islands_tpu_torch.core.embedding import InMemoryEmbeddingProvider
+from islands_tpu_torch.core.embedding import InMemoryEmbeddingProvider, materialize_embeddings
 from islands_tpu_torch.core.hnsw import HnswIndex
 from islands_tpu_torch.core import leann as leann_mod
 from islands_tpu_torch.core.leann import LeannIndex
@@ -94,6 +110,11 @@ from islands_tpu_torch.core.pq import pq_scan, pq_scan_smallest
 from islands_tpu_torch.core.search import StoredSearcher
 from islands_tpu_torch.core.searchapi import Searcher
 from islands_tpu_torch.core.storage import load_hnsw, load_index, save_hnsw, save_index
+from islands_tpu_torch.indexer.files import chunk_files, collect_files
+from islands_tpu_torch.indexer.native import collect_chunks_native
+from islands_tpu_torch.models import bert as bert_mod
+from islands_tpu_torch.models.encoder import TextEncoder
+from islands_tpu_torch.models.provider import EMBED_CHUNK_BATCHES, EncoderEmbeddingProvider
 from islands_tpu_torch.ops import _cuda, merge
 from islands_tpu_torch.ops import proj as proj_ops
 from islands_tpu_torch.ops.adc import (
@@ -119,12 +140,14 @@ from islands_tpu_torch.ops.pairwise import (
 )
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, the
-# non-tensor-core float32 rate and the dense TF32 tensor-core rate, used for
-# a kernel's bound. A shared-memory lookup runs at 32 per SM per clock (one
-# 4-byte word per bank).
+# non-tensor-core float32 rate and the dense TF32 and bfloat16 tensor-core
+# rates, used for a kernel's bound and the encoder's share of the peak. A
+# shared-memory lookup runs at 32 per SM per clock (one 4-byte word per
+# bank).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 TF32_TC_OPS_PER_S = 494.7e12
+BF16_TC_OPS_PER_S = 989e12
 SMEM_LOOKUPS_PER_SM_CLOCK = 32
 
 # Each kernel: its wrapper (whose `launches` counts launches), source, the
@@ -196,6 +219,34 @@ LIFE_SEARCHES = [("none/ef64", dict(gate="none", ef=64)),
                                                  max_iters=12, expand_width=2))]
 HNSW_EFS = (64, 128)
 SEARCHER_QUERIES = 64
+
+# Config 3 (bench_extra.py:114-219), nothing cut: 131,072 chunks of 64
+# token ids, minilm-l6 in bfloat16, the centred provider, and its rungs as
+# (name, gate, query batch, queries, ef, promote_width, max_iters). The i30
+# rung is printed below its margin and not gated.
+C3_N, C3_L, C3_QUERIES = 131072, 64, 256
+C3_CONFIG = LeannConfig(metric=DistanceMetric.COSINE, wave_size=4096, sketch_query=True,
+                        sketch_dims=32, routing_size=16384)
+C3_RUNGS = [("gated i36", "sketch", 64, 256, 48, 32, 36),
+            ("gated i33", "sketch", 64, 256, 48, 32, 33),
+            ("gated i30 (below margin)", "sketch", 64, 256, 48, 32, 30),
+            ("per-hop", "none", 16, 32, 64, None, None)]
+C3_MIN_RECALL = {"gated i36": 0.90, "per-hop": 0.98}
+C3_QPS_PASSES = 3
+ENCODER_BATCH = 2048  # rows per encoder call when the encoder is timed alone
+ENCODER_CALL_ROWS = (512, 1024, 4096, 8192)  # and the other call sizes timed
+# Config 1 (bench_extra.py:53-111): the running tree's own source, chunked
+# 512/64, bge-base, its queries the first min(256, n) chunks.
+C1_EXTS = ("py", "md", "cpp", "toml", "yaml")
+C1_CONFIG = LeannConfig(metric=DistanceMetric.COSINE, wave_size=1024, sketch_query=True)
+C1_QUERIES, C1_BATCH, C1_EF, C1_PAD = 256, 32, 96, 128
+C1_QPS_PASSES = 2
+C1_MIN_RECALL = 0.90
+# The card's bfloat16 encode against the port's float32 forward on the CPU:
+# the smallest per-row cosine of the pooled rows, raw and after both sides
+# subtract the CPU rows' mean (random-init embeddings share a dominant
+# direction that would hide a fault in the raw cosine).
+ENCODER_MIN_COS, ENCODER_MIN_CENTRED_COS = 0.999, 0.99
 
 # smallest_k's row shapes on the paths, (rows, width, k): _pop over the
 # config-2 and config-4 queues, the build's pools and [W, W] intra-wave
@@ -1294,6 +1345,211 @@ def phase_hnsw(x, queries, true_ids, metric) -> dict:
                 launches=launches)
 
 
+def config3_tokens():
+    """bench_extra.py's config-3 token table, drawn exactly as there:
+    2048 prototypes of 64 ids, 30% of ids replaced, lengths in [32, 64]."""
+    n, slen = C3_N, C3_L
+    rng = np.random.default_rng(0)
+    protos = rng.integers(1000, 29000, size=(2048, slen))
+    assign = rng.integers(0, 2048, size=n)
+    token_ids = protos[assign].copy()
+    noise = rng.random((n, slen)) < 0.3
+    token_ids[noise] = rng.integers(1000, 29000, size=int(noise.sum()))
+    lens = rng.integers(slen // 2, slen + 1, size=n)
+    mask = (np.arange(slen)[None, :] < lens[:, None]).astype(np.int32)
+    return (token_ids * mask).astype(np.int32), mask
+
+
+def encoder_flops_per_token(enc: TextEncoder, slen: int) -> float:
+    """Forward FLOPs per token: 2 x the non-embedding parameters (every
+    weight multiplies once per token) + 4 x L x h per layer (the q.k scores
+    and the probability-weighted values over L keys)."""
+    cfg = enc.model_config
+    params = sum(p.numel() for p in enc.model.layers.parameters())
+    return 2.0 * params + 4.0 * slen * cfg.hidden_size * cfg.num_hidden_layers
+
+
+def encoder_alone(enc: TextEncoder, ids, mask) -> dict:
+    """The encoder on the corpus rows, ENCODER_BATCH rows per call:
+    texts/s, tokens/s (padded tokens, which it computes) and its share of
+    the card's dense bfloat16 peak; and tokens/s at the other call sizes of
+    ENCODER_CALL_ROWS, which place the provider's chunk size."""
+    ids, mask = ids.cuda(), mask.cuda()
+    n, slen = ids.shape
+    flops = encoder_flops_per_token(enc, slen)
+    by_rows = {}
+    for rows in sorted({ENCODER_BATCH, *ENCODER_CALL_ROWS}):
+        bert_mod.encode(enc.model, ids[:rows], mask[:rows])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(0, n, rows):
+            bert_mod.encode(enc.model, ids[s:s + rows], mask[s:s + rows])
+        torch.cuda.synchronize()
+        by_rows[rows] = n * slen / (time.perf_counter() - t0)
+    tokens_s = by_rows[ENCODER_BATCH]
+    share = tokens_s * flops / BF16_TC_OPS_PER_S
+    log(f"  encoder alone, {n} rows x {slen} tokens in calls of {ENCODER_BATCH}: "
+        f"{tokens_s / slen:.1f} texts/s, {tokens_s:.1f} tokens/s, {flops / 1e6:.2f} "
+        f"MFLOP/token, {100 * share:.2f}% of the bf16 peak ({BF16_TC_OPS_PER_S / 1e12:.0f} "
+        f"TFLOP/s); tokens/s by rows per call: "
+        + ", ".join(f"{r}: {t:.1f}" for r, t in by_rows.items()))
+    return dict(rows=n, seq_len=slen, batch_rows=ENCODER_BATCH, texts_per_s=tokens_s / slen,
+                tokens_per_s=tokens_s, flops_per_token=flops, bf16_peak_share=share,
+                tokens_per_s_by_call_rows=by_rows)
+
+
+def encoder_card_vs_cpu(enc: TextEncoder, ids, mask, what: str) -> dict:
+    """The card's bfloat16 pooled rows against the port's own float32
+    forward on the CPU, from the same seeded weights."""
+    cfg = dataclasses.replace(enc.model_config, dtype="float32")
+    cpu = TextEncoder(bert_mod.init_params(cfg, 0), cfg, device="cpu")
+    got = bert_mod.encode(enc.model, ids.cuda(), mask.cuda()).cpu().double()
+    want = bert_mod.encode(cpu.model, ids, mask).double()
+    mu = want.mean(dim=0)
+    raw = float(F.cosine_similarity(got, want, dim=1).min())
+    centred = float(F.cosine_similarity(got - mu, want - mu, dim=1).min())
+    log(f"  {what}: card bf16 vs CPU float32 on {ids.shape[0]} rows: smallest cosine "
+        f"{raw:.6f} (bound {ENCODER_MIN_COS}), centred {centred:.6f} "
+        f"(bound {ENCODER_MIN_CENTRED_COS})")
+    if not (raw >= ENCODER_MIN_COS and centred >= ENCODER_MIN_CENTRED_COS):
+        raise AssertionError(f"{what}: the card's encoder disagrees with the CPU forward")
+    return dict(rows=int(ids.shape[0]), min_cosine=raw, min_centred_cosine=centred)
+
+
+def recompute_pass(idx, q, provider, bs, **knobs):
+    """idx.search over q in query batches of `bs` (a recompute search holds
+    a hop's encoder activations for the whole batch); returns the ids and
+    the recompute fraction averaged over the queries (None for gate "none",
+    which does not count it)."""
+    outs, fracs = [], []
+    for s in range(0, q.shape[0], bs):
+        idx.last_recompute_fraction = None
+        _, ids = idx.search(q[s:s + bs], k=10, provider=provider, **knobs)
+        outs.append(ids)
+        fracs.append(idx.last_recompute_fraction)
+    ids = torch.cat(outs)
+    if None in fracs:
+        return ids, None
+    return ids, sum(f * o.shape[0] for f, o in zip(fracs, outs)) / ids.shape[0]
+
+
+def recompute_rung(name, idx, q, true_ids, provider, bs, passes, **knobs) -> dict:
+    n = idx.num_nodes
+    ids, frac = recompute_pass(idx, q, provider, bs, **knobs)
+    rec = recall_at_10(ids, true_ids)
+    qps = []
+    for _ in range(passes):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recompute_pass(idx, q, provider, bs, **knobs)
+        torch.cuda.synchronize()
+        qps.append(q.shape[0] / (time.perf_counter() - t0))
+    qps.sort()
+    med = qps[len(qps) // 2]
+    enc_s = med * frac * n if frac is not None else None
+    log(f"  {name}: {q.shape[0]} queries in batches of {bs}, recall@10 {rec:.4f}, "
+        f"{qps_line(qps)}, recompute fraction "
+        + (f"{frac:.6f}, encodes/s {enc_s:.1f}" if frac is not None else "not counted (gate none)"))
+    return dict(rung=name, queries=int(q.shape[0]), batch=bs, recall=rec, qps=med, qps_runs=qps,
+                recompute_fraction=frac, encodes_per_s=enc_s, **knobs)
+
+
+def phase_config3() -> dict:
+    """BASELINE config 3: LEANN recompute search at 131,072 chunks with the
+    encoder on the card."""
+    ids_np, mask_np = config3_tokens()
+    ids, mask = torch.from_numpy(ids_np), torch.from_numpy(mask_np)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    enc = TextEncoder.from_preset("minilm-l6", seed=0)
+    provider = EncoderEmbeddingProvider(enc, ids, mask).with_center()
+    idx = LeannIndex(C3_CONFIG).build(provider, num_vectors=C3_N)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    bpv = idx.storage_bytes() / C3_N
+    log(f"  build {C3_N} chunks x {C3_L} tokens, minilm-l6 bf16 (encoder set-up, centre, "
+        f"embeddings, graph): {build_s:.3f} s; index bytes/vector {bpv:.2f}; embed chunk "
+        f"{enc.config.batch_size * EMBED_CHUNK_BATCHES} rows")
+
+    emb = materialize_embeddings(provider, C3_N)
+    q = emb[:C3_QUERIES].clone()
+    _, true_ids = brute_force_topk(q, emb, 10, C3_CONFIG.metric, batch=C3_N)
+    del emb
+    rungs = []
+    for name, gate, bs, nq, ef, pw, it in C3_RUNGS:
+        rungs.append(recompute_rung(name, idx, q[:nq], true_ids[:nq], provider, bs,
+                                    C3_QPS_PASSES, ef=ef, gate=gate, promote_width=pw,
+                                    max_iters=it))
+    launches = read_launches()
+    name, gate, bs, nq, ef, pw, it = C3_RUNGS[0]
+    profile = profile_pass(lambda: recompute_pass(idx, q, provider, bs, ef=ef, gate=gate,
+                                                  promote_width=pw, max_iters=it))
+    alone = encoder_alone(enc, ids, mask)
+    check = encoder_card_vs_cpu(enc, ids[:256], mask[:256], "minilm-l6")
+    for r in rungs:
+        floor = C3_MIN_RECALL.get(r["rung"])
+        if floor is not None and r["recall"] < floor:
+            raise AssertionError(f"config 3 {r['rung']}: recall@10 {r['recall']:.4f} < {floor}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  kernel launches on the config-3 path: {launches}; peak device memory "
+        f"{peak_gb:.2f} GB")
+    return dict(n=C3_N, seq_len=C3_L, encoder="minilm-l6", build_seconds=build_s,
+                index_bytes_per_vector=bpv, rungs=rungs, encoder_alone=alone,
+                encoder_check=check, gated_profile=profile, peak_device_gb=peak_gb,
+                launches=launches)
+
+
+def phase_config1(root: pathlib.Path) -> dict:
+    """BASELINE config 1: the checkout's own source, chunked by the native
+    loader and by the Python chunker (which must agree), indexed with the
+    bge-base encoder on the card and searched with recompute."""
+    t0 = time.perf_counter()
+    chunks = chunk_files(collect_files(root, C1_EXTS), 512, 64)
+    py_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native = collect_chunks_native(root, C1_EXTS, 512, 64)
+    native_s = time.perf_counter() - t0
+    if native is None:
+        raise AssertionError("the native loader did not build or failed")
+    if [dataclasses.astuple(c) for c in native] != [dataclasses.astuple(c) for c in chunks]:
+        raise AssertionError(f"native chunks ({len(native)}) differ from the Python "
+                             f"chunker's ({len(chunks)})")
+    n = len(chunks)
+    log(f"  {n} chunks of {root}: native == Python chunker (native {native_s:.3f} s, "
+        f"Python {py_s:.3f} s)")
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    enc = TextEncoder.from_preset("bge-base", seed=0)
+    provider = EncoderEmbeddingProvider.from_texts(enc, [c.text for c in chunks],
+                                                   pad_to=C1_PAD).with_center()
+    idx = LeannIndex(C1_CONFIG).build(provider)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    bpv = idx.storage_bytes() / n
+    log(f"  build {n} chunks x {C1_PAD} tokens, bge-base bf16 (tokenize, centre, embeddings, "
+        f"graph): {build_s:.3f} s; index bytes/vector {bpv:.2f}")
+    emb = materialize_embeddings(provider, n)
+    qn = min(C1_QUERIES, n)
+    q = emb[:qn].clone()
+    _, true_ids = brute_force_topk(q, emb, 10, C1_CONFIG.metric)
+    rung = recompute_rung(f"ef{C1_EF}/gate auto", idx, q, true_ids, provider, C1_BATCH,
+                          C1_QPS_PASSES, ef=C1_EF, gate="auto")
+    launches = read_launches()
+    check = encoder_card_vs_cpu(enc, provider.token_ids[:64].cpu(),
+                                provider.token_mask[:64].cpu(), "bge-base")
+    if rung["recall"] < C1_MIN_RECALL:
+        raise AssertionError(f"config 1: recall@10 {rung['recall']:.4f} < {C1_MIN_RECALL}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  kernel launches on the config-1 path: {launches}; peak device memory "
+        f"{peak_gb:.2f} GB")
+    return dict(n_chunks=n, native_equals_python=True, encoder="bge-base", seq_len=C1_PAD,
+                build_seconds=build_s, index_bytes_per_vector=bpv, rung=rung,
+                encoder_check=check, peak_device_gb=peak_gb, launches=launches)
+
+
 def build_kernels() -> None:
     """nvcc every source at once (one process each) and log what ptxas says
     of its kernels' registers and shared memory."""
@@ -1381,10 +1637,23 @@ def main() -> int:
     log(f"  phases 1-6: {time.perf_counter() - t_start:.1f} s")
     log(f"phase 7: HNSW at {x.shape[0]}x{DIM}")
     hnsw = phase_hnsw(x, queries, true_ids, metric)
+    del x, queries, true_ids
+    torch.cuda.empty_cache()
+    log(f"  phases 1-7: {time.perf_counter() - t_start:.1f} s")
+    t_phase = time.perf_counter()
+    log(f"phase 8: config 3, recompute search at {C3_N} chunks x {C3_L} tokens, minilm-l6")
+    config3 = phase_config3()
+    torch.cuda.empty_cache()
+    log(f"  phase 8: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    log("phase 9: config 1, the checkout's own source, bge-base")
+    config1 = phase_config1(here)
+    log(f"  phase 9: {time.perf_counter() - t_phase:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     paths = {"config2": config2, "config4": config4, "ops_api": ops_api,
-             "gather_bench": bench, "lifecycle": lifecycle, "hnsw": hnsw}
+             "gather_bench": bench, "lifecycle": lifecycle, "hnsw": hnsw,
+             "config3": config3, "config1": config1}
     kernels = []
     for name, fig in (("hop_merge", k1), ("gated_adc", k2), ("adc_scan", k3),
                       ("adc_scan_smallest", k3s), ("pairwise_l2", k4a), ("pairwise_neg_dot", k4b), ("row_gather", k5)):

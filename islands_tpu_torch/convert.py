@@ -5,6 +5,12 @@ fields as numpy arrays (`np.asarray(field)`); these functions build the
 port's objects from them, so the port's search can run on the reference's
 own graph, sketch, codebook and layers (k-means++ and the projection draw
 from jax.random, which torch cannot redo).
+
+`bert_from_numpy` and `modernbert_from_numpy` turn encoder parameters in
+the reference's layout (dense weights [in, out], q/k/v fused, layers
+stacked on axis 0; what `models.*.init_params` and `load_hf_checkpoint`
+return) into the port's modules. They own every transpose: nn.Linear keeps
+its weight as [out, in].
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ from islands_tpu_torch.core.hnsw import HnswIndex, HnswLayer
 from islands_tpu_torch.core.leann import LeannIndex
 from islands_tpu_torch.core.pq import PQCodebook, ProductQuantizer
 from islands_tpu_torch.device import resolve_device, to_device
+from islands_tpu_torch.models.bert import BertConfig, BertModel
+from islands_tpu_torch.models.modernbert import ModernBertConfig, ModernBertModel
 from islands_tpu_torch.ops.proj import SketchIndex
 
 
@@ -89,3 +97,58 @@ def leann_from_numpy(config: LeannConfig, dimension: int, graph: dict, pq: dict 
     if pq is not None:
         idx.pq, idx.pq_codes = pq_from_numpy(**pq, device=dev)
     return idx
+
+
+def _set(param: torch.nn.Parameter, value, transpose: bool = False) -> None:
+    """Copy `value` ([in, out] when `transpose`) into `param` in its own
+    dtype (the compute dtype for dense weights)."""
+    t = torch.from_numpy(np.array(value, dtype=np.float32))
+    param.copy_(t.T if transpose else t)
+
+
+def _frozen(model: torch.nn.Module) -> torch.nn.Module:
+    return model.requires_grad_(False).eval()
+
+
+@torch.no_grad()
+def bert_from_numpy(params: dict, config: BertConfig, device=None) -> BertModel:
+    """A BertModel holding the reference-layout parameters `params`."""
+    dev = resolve_device(device)
+    model = BertModel(config, device=dev)
+    emb, lay = params["embeddings"], params["layers"]
+    _set(model.word.weight, emb["word"])
+    _set(model.position.weight, emb["position"])
+    _set(model.token_type.weight, emb["token_type"])
+    _set(model.emb_ln.weight, emb["ln_scale"])
+    _set(model.emb_ln.bias, emb["ln_bias"])
+    for i, layer in enumerate(model.layers):
+        for lin, name in ((layer.qkv, "qkv"), (layer.o, "o"), (layer.ffn_in, "ffn_in"),
+                          (layer.ffn_out, "ffn_out")):
+            _set(lin.weight, lay[f"{name}_w"][i], transpose=True)
+            _set(lin.bias, lay[f"{name}_b"][i])
+        for norm, name in ((layer.attn_ln, "attn_ln"), (layer.ffn_ln, "ffn_ln")):
+            _set(norm.weight, lay[f"{name}_scale"][i])
+            _set(norm.bias, lay[f"{name}_bias"][i])
+    return _frozen(model)
+
+
+@torch.no_grad()
+def modernbert_from_numpy(params: dict, config: ModernBertConfig,
+                          device=None) -> ModernBertModel:
+    """A ModernBertModel holding the reference-layout parameters `params`
+    (layer 0's attn_ln_scale slot is unused: its attention norm is the
+    identity)."""
+    dev = resolve_device(device)
+    model = ModernBertModel(config, device=dev)
+    lay = params["layers"]
+    _set(model.word.weight, params["embeddings"]["word"])
+    _set(model.emb_norm.weight, params["embeddings"]["ln_scale"])
+    _set(model.final_norm.weight, params["final_ln_scale"])
+    for i, layer in enumerate(model.layers):
+        for lin, name in ((layer.wqkv, "qkv_w"), (layer.wo, "o_w"), (layer.wi, "wi_w"),
+                          (layer.mlp_wo, "wo_w")):
+            _set(lin.weight, lay[name][i], transpose=True)
+        if layer.attn_norm is not None:
+            _set(layer.attn_norm.weight, lay["attn_ln_scale"][i])
+        _set(layer.mlp_norm.weight, lay["mlp_ln_scale"][i])
+    return _frozen(model)

@@ -637,3 +637,12 @@ class StoredSearcher:
                                     scorer=make_stored_scorer(self.metric), ef=ef,
                                     expand_width=expand_width, max_iters=max_iters)
         return dists[:, :k], ids[:, :k]
+
+
+def search_stored(queries, graph: CsrGraph, x, k: int, ef: int = 64,
+                  metric: DistanceMetric = DistanceMetric.COSINE, expand_width: int = 4,
+                  max_iters: int | None = None, device=None):
+    """One-shot exact search over stored embeddings: a StoredSearcher with
+    no sketch, searched once."""
+    return StoredSearcher(graph, x, metric, device=device).search(
+        queries, k=k, ef=ef, expand_width=expand_width, max_iters=max_iters)

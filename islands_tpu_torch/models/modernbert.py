@@ -1,0 +1,259 @@
+"""ModernBERT sentence encoder, the second encoder architecture.
+
+Port of islands_tpu/models/modernbert.py (answerdotai/ModernBERT):
+- no position or token-type embeddings: rotary position embeddings (RoPE,
+  rotate-half convention) applied to q and k inside attention;
+- alternating attention: every `global_attn_every_n_layers`-th layer is
+  global (full attention, rope theta 160k), the rest are local (a band of
+  +/- local_attention // 2 tokens, rope theta 10k);
+- pre-norm residual blocks with bias-free linears and LayerNorms; layer 0's
+  attention norm is the identity (the embeddings are normed already);
+- a gated MLP (GeGLU): Wi projects to 2 * intermediate, gelu(input) * gate;
+- a final LayerNorm after the stack.
+
+The reference keeps one `lax.scan` body by selecting the global or local
+tables with per-layer float flags; here each layer knows its kind. Numerics
+are the reference's: matmul operands in the compute dtype, RoPE tables and
+softmax statistics in float32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from islands_tpu_torch.models.bert import (
+    compute_dtype,
+    encode,
+    layer_norm,
+    mean_pool_normalize,
+    padding_bias,
+    read_checkpoint,
+)
+
+__all__ = ["ModernBertConfig", "ModernBertModel", "encode", "init_params",
+           "load_hf_checkpoint", "mean_pool_normalize", "rope_tables", "rotate_half"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModernBertConfig:
+    """Architecture hyperparameters (HF modernbert config.json subset)."""
+
+    vocab_size: int = 50368
+    hidden_size: int = 768
+    num_hidden_layers: int = 22
+    num_attention_heads: int = 12
+    intermediate_size: int = 1152
+    max_position_embeddings: int = 8192
+    norm_eps: float = 1e-5
+    pad_token_id: int = 50283
+    global_rope_theta: float = 160000.0
+    local_rope_theta: float = 10000.0
+    local_attention: int = 128  # window = +/- local_attention // 2
+    global_attn_every_n_layers: int = 3
+    dtype: str = "bfloat16"
+
+    @staticmethod
+    def modernbert_base() -> "ModernBertConfig":
+        """ModernBERT-base (768-d, 22 layers)."""
+        return ModernBertConfig()
+
+    @staticmethod
+    def modernbert_large() -> "ModernBertConfig":
+        """ModernBERT-large (1024-d, 28 layers)."""
+        return ModernBertConfig(hidden_size=1024, num_hidden_layers=28,
+                                num_attention_heads=16, intermediate_size=2624)
+
+    @staticmethod
+    def tiny_test() -> "ModernBertConfig":
+        """Small config for tests: 4 layers, so both global (0, 3) and local
+        (1, 2) layers run."""
+        return ModernBertConfig(vocab_size=1024, hidden_size=64,
+                                num_hidden_layers=4, num_attention_heads=4,
+                                intermediate_size=96,
+                                max_position_embeddings=128,
+                                local_attention=16, pad_token_id=0,
+                                dtype="float32")
+
+    @staticmethod
+    def from_json(path: str | Path) -> "ModernBertConfig":
+        raw = json.loads(Path(path).read_text())
+        d = ModernBertConfig()
+        return ModernBertConfig(**{
+            f.name: raw.get(f.name, getattr(d, f.name))
+            for f in dataclasses.fields(ModernBertConfig) if f.name != "dtype"
+        })
+
+
+def init_params(config: ModernBertConfig, seed: int = 0) -> dict:
+    """Random-init parameters in the reference's layout (numpy float32, the
+    same seeded draws in the same order). Layer 0's attn_ln_scale slot
+    exists but is unused (its attention norm is the identity)."""
+    rng = np.random.default_rng(seed)
+    h, i, L = config.hidden_size, config.intermediate_size, config.num_hidden_layers
+
+    def w(*shape, scale=0.02):
+        return rng.standard_normal(shape).astype(np.float32) * scale
+
+    return {
+        "embeddings": {
+            "word": w(config.vocab_size, h),
+            "ln_scale": np.ones((h,), np.float32),
+        },
+        "layers": {
+            "qkv_w": w(L, h, 3 * h),
+            "o_w": w(L, h, h),
+            "attn_ln_scale": np.ones((L, h), np.float32),
+            "wi_w": w(L, h, 2 * i),
+            "wo_w": w(L, i, h),
+            "mlp_ln_scale": np.ones((L, h), np.float32),
+        },
+        "final_ln_scale": np.ones((h,), np.float32),
+    }
+
+
+def rope_tables(slen: int, head_dim: int, theta: float) -> tuple[np.ndarray, np.ndarray]:
+    """(cos, sin) [slen, head_dim] float32 in the duplicated-half layout
+    (emb = cat(freqs, freqs)), computed in float64 as the reference does."""
+    inv_freq = 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float64) / head_dim))
+    freqs = np.arange(slen, dtype=np.float64)[:, None] * inv_freq[None, :]
+    emb = np.concatenate([freqs, freqs], axis=-1).astype(np.float32)
+    return np.cos(emb), np.sin(emb)
+
+
+def rotate_half(x: torch.Tensor) -> torch.Tensor:
+    half = x.shape[-1] // 2
+    return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+
+
+def band_bias(attention_mask: torch.Tensor, window: int, dtype: torch.dtype) -> torch.Tensor:
+    """[B, 1, L, L] additive bias of a local layer: the padding bias plus
+    -1e9 outside |q - k| <= window // 2, summed in float32 and then cast."""
+    slen = attention_mask.shape[1]
+    pos = torch.arange(slen, device=attention_mask.device)
+    in_window = (pos[:, None] - pos[None, :]).abs() <= window // 2
+    pad = padding_bias(attention_mask, torch.float32)
+    return (pad + torch.where(in_window, 0.0, -1e9)[None, None]).to(dtype)
+
+
+class ModernBertLayer(nn.Module):
+    def __init__(self, config: ModernBertConfig, index: int, dtype: torch.dtype, device):
+        super().__init__()
+        h, i, eps = config.hidden_size, config.intermediate_size, config.norm_eps
+        lin = dict(bias=False, dtype=dtype, device=device)
+        f32 = dict(eps=eps, bias=False, dtype=torch.float32, device=device)
+        self.heads = config.num_attention_heads
+        self.is_global = index % config.global_attn_every_n_layers == 0
+        # Layer 0 normalises nothing before attention.
+        self.attn_norm = nn.LayerNorm(h, **f32) if index > 0 else None
+        self.wqkv = nn.Linear(h, 3 * h, **lin)
+        self.wo = nn.Linear(h, h, **lin)
+        self.mlp_norm = nn.LayerNorm(h, **f32)
+        self.wi = nn.Linear(h, 2 * i, **lin)
+        self.mlp_wo = nn.Linear(i, h, **lin)
+
+    def forward(self, x, cos, sin, bias):
+        b, slen, h = x.shape
+        nh = self.heads
+        xn = x if self.attn_norm is None else layer_norm(x, self.attn_norm)
+        qkv = self.wqkv(xn).view(b, slen, 3, nh, h // nh)
+        # RoPE in float32 on [B, L, H, D]; cos/sin are [L, 1, D].
+        q, k = qkv[:, :, 0].float(), qkv[:, :, 1].float()
+        q = (q * cos + rotate_half(q) * sin).to(x.dtype).transpose(1, 2)
+        k = (k * cos + rotate_half(k) * sin).to(x.dtype).transpose(1, 2)
+        v = qkv[:, :, 2].transpose(1, 2)
+        ctx = F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+        x = x + self.wo(ctx.transpose(1, 2).reshape(b, slen, h))
+        wi = self.wi(layer_norm(x, self.mlp_norm)).float()
+        inner = wi.shape[-1] // 2
+        gated = (F.gelu(wi[..., :inner]) * wi[..., inner:]).to(x.dtype)
+        return x + self.mlp_wo(gated)
+
+
+class ModernBertModel(nn.Module):
+    """ModernBERT encoder: [B, L] ids + [B, L] mask -> hidden states
+    [B, L, H] float32. Built by `convert.modernbert_from_numpy`."""
+
+    def __init__(self, config: ModernBertConfig, device=None):
+        super().__init__()
+        self.config = config
+        self.dtype = compute_dtype(config.dtype)
+        h = config.hidden_size
+        f32 = dict(dtype=torch.float32, device=device)
+        self.word = nn.Embedding(config.vocab_size, h, **f32)
+        self.emb_norm = nn.LayerNorm(h, eps=config.norm_eps, bias=False, **f32)
+        self.layers = nn.ModuleList(ModernBertLayer(config, i, self.dtype, device)
+                                    for i in range(config.num_hidden_layers))
+        self.final_norm = nn.LayerNorm(h, eps=config.norm_eps, bias=False, **f32)
+        self._rope: dict = {}
+
+    def _tables(self, slen: int, theta: float, device):
+        key = (slen, theta, device)
+        if key not in self._rope:
+            hd = self.config.hidden_size // self.config.num_attention_heads
+            cos, sin = rope_tables(slen, hd, theta)
+            self._rope[key] = (torch.from_numpy(cos).to(device)[:, None, :],
+                               torch.from_numpy(sin).to(device)[:, None, :])
+        return self._rope[key]
+
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        slen = input_ids.shape[1]
+        dev = input_ids.device
+        x = layer_norm(self.word(input_ids.long()), self.emb_norm).to(self.dtype)
+        global_bias = padding_bias(attention_mask, self.dtype)
+        local_bias = band_bias(attention_mask, cfg.local_attention, self.dtype)
+        rope = {True: self._tables(slen, cfg.global_rope_theta, dev),
+                False: self._tables(slen, cfg.local_rope_theta, dev)}
+        for layer in self.layers:
+            cos, sin = rope[layer.is_global]
+            x = layer(x, cos, sin, global_bias if layer.is_global else local_bias)
+        return layer_norm(x.float(), self.final_norm)
+
+
+def load_hf_checkpoint(path: str | Path) -> tuple[dict, ModernBertConfig]:
+    """Load a ModernBERT checkpoint from a local HF model directory into the
+    reference's parameter layout (numpy float32, dense weights [in, out]);
+    layer 0's missing attention norm (Identity in HF) fills with ones."""
+    path = Path(path)
+    config = ModernBertConfig.from_json(path / "config.json")
+    raw = {k.removeprefix("model."): v for k, v in read_checkpoint(path).items()}
+
+    def get(name):
+        return np.asarray(raw[name], dtype=np.float32)
+
+    ones_h = np.ones((config.hidden_size,), np.float32)
+
+    def stack(fmt: str, transpose: bool) -> np.ndarray:
+        mats = []
+        for i in range(config.num_hidden_layers):
+            key = fmt.format(i=i)
+            if key not in raw:  # layer 0 attn_norm is Identity
+                mats.append(ones_h)
+                continue
+            m = get(key)
+            mats.append(m.T if transpose else m)
+        return np.ascontiguousarray(np.stack(mats))
+
+    params = {
+        "embeddings": {
+            "word": get("embeddings.tok_embeddings.weight"),
+            "ln_scale": get("embeddings.norm.weight"),
+        },
+        "layers": {
+            "qkv_w": stack("layers.{i}.attn.Wqkv.weight", True),
+            "o_w": stack("layers.{i}.attn.Wo.weight", True),
+            "attn_ln_scale": stack("layers.{i}.attn_norm.weight", False),
+            "wi_w": stack("layers.{i}.mlp.Wi.weight", True),
+            "wo_w": stack("layers.{i}.mlp.Wo.weight", True),
+            "mlp_ln_scale": stack("layers.{i}.mlp_norm.weight", False),
+        },
+        "final_ln_scale": get("final_norm.weight"),
+    }
+    return params, config

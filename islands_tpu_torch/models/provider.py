@@ -1,0 +1,106 @@
+"""Encoder-backed embedding provider: the id -> text -> embedding bridge.
+
+Port of islands_tpu/models/provider.py. Texts are tokenized once into an
+[N, L] token table on the encoder's device, and `embed(ids)` gathers the
+ids' token rows and runs the encoder on them: LEANN's per-hop recompute.
+
+The reference's provider always runs the BERT forward, whatever the
+encoder's architecture, so a provider over a ModernBERT encoder fails there.
+This one runs the encoder's own module (models/bert.encode takes either).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from islands_tpu_torch.device import to_device
+from islands_tpu_torch.models.bert import encode
+from islands_tpu_torch.models.encoder import TextEncoder
+
+#: `embed` runs the encoder on at most EncoderConfig.batch_size times this
+#: many rows at once (4096 rows at the default batch size of 64); a hop that
+#: asks for more is encoded in chunks.
+EMBED_CHUNK_BATCHES = 64
+
+
+class EncoderEmbeddingProvider:
+    """EmbeddingProvider over (encoder, token table).
+
+    `from_texts` tokenizes the corpus up front and keeps only int32 token
+    ids on the device. With a `center` (see `with_center`) the corpus mean
+    is subtracted from every pooled output and the in-encode L2 norm is
+    skipped: centring acts on the raw pooled output, and the metric's prep
+    normalizes again for cosine.
+    """
+
+    def __init__(self, encoder: TextEncoder, token_ids, token_mask, center=None):
+        self.encoder = encoder
+        dev = encoder.device
+        self.token_ids = to_device(token_ids, dev, torch.int32)
+        self.token_mask = to_device(token_mask, dev, torch.int32)
+        self._n = int(self.token_ids.shape[0])
+        self.center = (to_device(center, dev, torch.float32) if center is not None
+                       else torch.zeros((encoder.dimension,), dtype=torch.float32, device=dev))
+        self._centered = center is not None
+        self._normalize = encoder.config.normalize and not self._centered
+
+    def _encode_rows(self, ids: torch.Tensor, normalize: bool) -> torch.Tensor:
+        """Pooled outputs [n, d] of the token rows `ids` (clamped into
+        range), in chunks of the encoder's batch size x EMBED_CHUNK_BATCHES."""
+        safe = torch.clamp(ids.reshape(-1).long(), 0, max(self._n, 1) - 1)
+        chunk = self.encoder.config.batch_size * EMBED_CHUNK_BATCHES
+        out = torch.empty((safe.numel(), self.dimension), dtype=torch.float32,
+                          device=self.device)
+        for s in range(0, safe.numel(), chunk):
+            rows = safe[s:s + chunk]
+            out[s:s + chunk] = encode(self.encoder.model, self.token_ids[rows],
+                                      self.token_mask[rows], normalize)
+        return out
+
+    def embed(self, ids: torch.Tensor) -> torch.Tensor:
+        """ids [...] -> embeddings [..., d] float32 on the provider's device.
+        Out-of-range ids are clamped (callers mask them)."""
+        ids = to_device(ids, self.device)
+        rows = self._encode_rows(ids, self._normalize) - self.center
+        return rows.view(*ids.shape, self.dimension)
+
+    def with_center(self, sample: int = 8192, batch: int = 256) -> "EncoderEmbeddingProvider":
+        """A provider that subtracts the corpus mean from every embedding,
+        the standard anisotropy correction: random-init transformer
+        sentence embeddings share a dominant component that compresses
+        cosine contrast. The mean is over the raw (un-normalized) pooled
+        outputs of the first `sample` items, summed `batch` at a time."""
+        take = min(sample, max(self._n, 1))
+        acc = torch.zeros((self.dimension,), dtype=torch.float32, device=self.device)
+        for s in range(0, take, batch):
+            ids = torch.arange(s, min(s + batch, take), device=self.device)
+            acc = acc + torch.sum(self._encode_rows(ids, normalize=False), dim=0)
+        return EncoderEmbeddingProvider(self.encoder, self.token_ids, self.token_mask,
+                                        center=acc / take)
+
+    @staticmethod
+    def from_texts(encoder: TextEncoder, texts: list[str],
+                   pad_to: int | None = None) -> "EncoderEmbeddingProvider":
+        L = pad_to or encoder.config.max_seq_length
+        ids, mask = encoder.tokenize(texts, pad_to=L)
+        return EncoderEmbeddingProvider(encoder, ids, mask)
+
+    @property
+    def dimension(self) -> int:
+        return self.encoder.dimension
+
+    @property
+    def num_items(self) -> int:
+        return self._n
+
+    @property
+    def device(self) -> torch.device:
+        return self.encoder.device
+
+    def compute_embedding(self, item_id: int) -> np.ndarray:
+        return self.compute_embeddings_batch([item_id])[0]
+
+    def compute_embeddings_batch(self, ids) -> np.ndarray:
+        ids = torch.as_tensor(np.asarray(ids), dtype=torch.int32)
+        return self.embed(ids).cpu().numpy()

@@ -6,22 +6,35 @@ Port of islands_tpu/ops/distance.py, batch-major:
 - dotproduct     = -a.b
 - manhattan      = sum |a-b|
 
-The reference runs its matmuls at Precision.HIGHEST (full float32). So
-importing this module turns TF32 off for CUDA matmuls and cuDNN:
-`torch.backends.cuda.matmul.allow_tf32 = False` and
-`torch.backends.cudnn.allow_tf32 = False`. TF32 keeps ~3 decimal digits and
-would reorder near neighbours on the exact-distance paths.
+The reference runs these matmuls at Precision.HIGHEST (full float32). So
+`pairwise_distance` and `rowwise_distance` (and `brute_force_topk` and the
+search scorers through them) turn TF32 off for their own products only
+(`full_f32`), and leave the caller's setting as they found it. TF32 keeps
+~3 decimal digits and would reorder near neighbours on the exact-distance
+paths.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from islands_tpu_torch.core.config import DistanceMetric
 from islands_tpu_torch.ops.merge import smallest_k
 
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
+
+@contextlib.contextmanager
+def full_f32():
+    """CUDA float32 matmuls at full precision inside the block (or the
+    decorated function); the process-wide TF32 setting is restored on the
+    way out."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def normalize(v: torch.Tensor, dim: int = -1, eps: float = 0.0) -> torch.Tensor:
@@ -35,6 +48,7 @@ def _sq_norms(x: torch.Tensor) -> torch.Tensor:
     return torch.sum(x * x, dim=-1)
 
 
+@full_f32()
 def pairwise_distance(q: torch.Tensor, x: torch.Tensor,
                       metric: DistanceMetric = DistanceMetric.COSINE,
                       squared: bool = False) -> torch.Tensor:
@@ -56,6 +70,7 @@ def pairwise_distance(q: torch.Tensor, x: torch.Tensor,
     raise ValueError(f"unknown metric: {metric}")
 
 
+@full_f32()
 def rowwise_distance(q: torch.Tensor, rows: torch.Tensor,
                      metric: DistanceMetric = DistanceMetric.COSINE) -> torch.Tensor:
     """Per-query distances to gathered rows: q [B, d] vs rows [B, E, d] ->
@@ -76,6 +91,18 @@ def rowwise_distance(q: torch.Tensor, rows: torch.Tensor,
 
 
 rows_distance = rowwise_distance
+
+
+def distance(a: torch.Tensor, b: torch.Tensor,
+             metric: DistanceMetric = DistanceMetric.COSINE) -> torch.Tensor:
+    """Scalar distance between two vectors [d] (a 0-d tensor). EUCLIDEAN
+    and MANHATTAN take the difference of the vectors, so distance(a, a) is
+    0: the reference's |a|^2 + |b|^2 - 2 a.b gives 0 there only because
+    XLA rounds its norms and its dot alike, which torch's sum and matmul
+    do not."""
+    if metric in (DistanceMetric.EUCLIDEAN, DistanceMetric.MANHATTAN):
+        return rowwise_distance(a[None, :], b[None, None, :], metric)[0, 0]
+    return pairwise_distance(a[None, :], b[None, :], metric)[0, 0]
 
 
 def prep_query(q: torch.Tensor, metric: DistanceMetric) -> torch.Tensor:

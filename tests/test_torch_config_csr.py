@@ -165,6 +165,60 @@ def test_guard_covers_the_lifecycle_modules(module):
     assert module in _port_modules()
 
 
+@pytest.mark.parametrize("module", [
+    "islands_tpu_torch.models", "islands_tpu_torch.models.bert",
+    "islands_tpu_torch.models.modernbert", "islands_tpu_torch.models.encoder",
+    "islands_tpu_torch.models.provider", "islands_tpu_torch.models.cloud",
+    "islands_tpu_torch.indexer", "islands_tpu_torch.indexer.files",
+    "islands_tpu_torch.indexer.native"])
+def test_guard_covers_the_models_and_indexer_modules(module):
+    # The sixth slice's modules (the encoders, the encoder provider, cloud,
+    # config 1's feed) are among those the guards below import and parse.
+    assert module in _port_modules()
+
+
+@pytest.mark.parametrize("flags", [(False, True), (True, False), (True, True), (False, False)])
+def test_import_leaves_tf32_flags(flags):
+    """Importing every module of the port leaves the process-wide matmul and
+    cuDNN TF32 flags as the caller set them."""
+    code = ("import importlib, torch\n"
+            f"matmul, cudnn = {flags!r}\n"
+            "torch.backends.cuda.matmul.allow_tf32 = matmul\n"
+            "torch.backends.cudnn.allow_tf32 = cudnn\n"
+            f"for m in {_port_modules()!r}:\n"
+            "    importlib.import_module(m)\n"
+            "got = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)\n"
+            "assert got == (matmul, cudnn), got\n"
+            "print('unchanged')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "unchanged" in out.stdout
+
+
+def test_exact_distances_restore_the_tf32_flag():
+    """The exact-distance calls run at full float32 and hand the caller's
+    matmul TF32 setting back unchanged."""
+    from islands_tpu_torch.ops import distance as td
+
+    metric = tcfg.DistanceMetric
+    q, x = torch.randn(4, 8), torch.randn(20, 8)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for caller in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = caller
+            seen = []
+            with td.full_f32():
+                seen.append(torch.backends.cuda.matmul.allow_tf32)
+            td.pairwise_distance(q, x, metric.EUCLIDEAN)
+            td.rowwise_distance(q, x[:12].view(4, 3, 8), metric.COSINE)
+            td.brute_force_topk(q, x, 3, metric.DOT_PRODUCT, batch=7)
+            assert seen == [False]
+            assert torch.backends.cuda.matmul.allow_tf32 is caller
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
 def test_import_isolation_subprocess():
     """Importing every module of the port loads neither jax nor islands_tpu."""
     code = ("import importlib, sys\n"

@@ -494,3 +494,47 @@ def test_row_gather_kernel_matches_plain_version(n, d, k, dtype):
     assert row_gather.launches == before + (1 if k else 0)
     assert got.shape == (k, d)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["euclidean", "cosine", "dotproduct"])
+def test_exact_distances_stay_full_f32_with_caller_tf32(metric):
+    # A caller that turns matmul TF32 on gets the same exact distances and
+    # top-k as with it off, within float32 rounding of a float64 oracle, and
+    # keeps its own setting.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from islands_tpu_torch.core.config import DistanceMetric
+    from islands_tpu_torch.ops.distance import brute_force_topk, pairwise_distance
+
+    m = DistanceMetric(metric)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn((256, 128), generator=gen, device="cuda") + 3.0
+    x = torch.randn((20000, 128), generator=gen, device="cuda") + 3.0
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        want_d = pairwise_distance(q, x, m)
+        want_topk = brute_force_topk(q, x, 10, m, batch=4096)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        got_d = pairwise_distance(q, x, m)
+        got_topk = brute_force_topk(q, x, 10, m, batch=4096)
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+        # What TF32 itself would give: visibly off the float64 oracle.
+        tf32 = q @ x.T
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    torch.cuda.synchronize()
+    assert torch.equal(got_d, want_d)
+    assert torch.equal(got_topk[0], want_topk[0]) and torch.equal(got_topk[1], want_topk[1])
+    q64, x64 = q.double(), x.double()
+    dot64 = q64 @ x64.T
+    if metric == "euclidean":
+        exact = torch.cdist(q64, x64)
+    elif metric == "cosine":
+        exact = 1.0 - dot64 / (q64.norm(dim=1)[:, None] * x64.norm(dim=1)[None, :])
+    else:
+        exact = -dot64
+    scale = max(float(exact.abs().max()), 1.0)
+    assert float((got_d.double() - exact).abs().max()) <= 1e-5 * scale
+    assert float((tf32.double() - dot64).abs().max()) > 1e-5 * float(dot64.abs().max())

@@ -1,0 +1,333 @@
+"""models/bert.py and models/modernbert.py of the port against the JAX
+package's, on the same numpy-seeded weights and ids.
+
+Tolerances:
+- init_params: equal array for array (the same numpy draws);
+- float32 forwards and encode: within atol 1e-5 of bert_forward /
+  modernbert_forward (the same arithmetic in another order);
+- bfloat16: the smallest per-row cosine of the pooled outputs >= 0.999 (the
+  port's attention keeps its probabilities in float32 registers where the
+  reference rounds them to bfloat16);
+- HF parity (mirrors tests/test_models.py's TestHFParity and
+  TestModernBertHFParity): within 1e-4 of transformers' forward on a
+  checkpoint it saved to a tmp dir, loaded from safetensors and from .bin.
+"""
+
+import dataclasses as dc
+import json
+import os
+import shutil
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from islands_tpu.models import bert as jbert
+from islands_tpu.models import modernbert as jmb
+from islands_tpu_torch import convert
+from islands_tpu_torch.models import PRESETS, ModelArchitecture, TextEncoder
+from islands_tpu_torch.models import bert as tbert
+from islands_tpu_torch.models import modernbert as tmb
+
+# transformers' torch models are all these tests use; skip its TensorFlow
+# and Flax imports (most of its import time).
+os.environ.setdefault("USE_TF", "0")
+os.environ.setdefault("USE_FLAX", "0")
+
+ARCHS = {
+    "bert": (jbert, tbert, jbert.BertConfig.tiny_test(), jbert.bert_forward,
+             convert.bert_from_numpy),
+    "modernbert": (jmb, tmb, jmb.ModernBertConfig.tiny_test(), jmb.modernbert_forward,
+                   convert.modernbert_from_numpy),
+}
+
+
+def _ids(seed=3, b=4, slen=24):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, 1024, size=(b, slen)).astype(np.int32)
+    mask = np.ones((b, slen), dtype=np.int32)
+    mask[1, 16:] = 0
+    mask[3, 8:] = 0
+    return ids * mask, mask
+
+
+def _port(arch, cfg, params=None):
+    jmod, tmod, _, _, conv = ARCHS[arch]
+    return conv(params if params is not None else tmod.init_params(cfg, 0), cfg, "cpu")
+
+
+def _cos_min(a, b):
+    return float(np.min(np.sum(a * b, 1) / np.linalg.norm(a, axis=1) / np.linalg.norm(b, axis=1)))
+
+
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_init_params_equal(arch):
+    jmod, tmod, cfg, _, _ = ARCHS[arch]
+    want = jmod.init_params(cfg, seed=5)
+    got = tmod.init_params(cfg, seed=5)
+
+    def leaves(d, prefix=""):
+        for k, v in sorted(d.items()):
+            if isinstance(v, dict):
+                yield from leaves(v, prefix + k + ".")
+            else:
+                yield prefix + k, v
+
+    w, g = dict(leaves(want)), dict(leaves(got))
+    assert w.keys() == g.keys()
+    for k in w:
+        assert g[k].dtype == np.float32
+        np.testing.assert_array_equal(g[k], np.asarray(w[k]), err_msg=k)
+
+
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_forward_and_encode_f32(arch):
+    jmod, tmod, cfg, jfwd, _ = ARCHS[arch]
+    params = jmod.init_params(cfg, 0)
+    model = _port(arch, cfg)
+    ids, mask = _ids()
+    want = np.asarray(jfwd(params, jnp.asarray(ids), jnp.asarray(mask), cfg))
+    with torch.no_grad():
+        got = model(torch.from_numpy(ids), torch.from_numpy(mask)).numpy()
+    assert got.dtype == np.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    for normalize in (True, False):
+        want_e = np.asarray(jmod.encode(params, jnp.asarray(ids), jnp.asarray(mask), cfg,
+                                        normalize=normalize))
+        got_e = tmod.encode(model, torch.from_numpy(ids), torch.from_numpy(mask),
+                            normalize).numpy()
+        np.testing.assert_allclose(got_e, want_e, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("impl", ["slice", "fold", "dtl", "onepass"])
+def test_bert_attn_impl_values_compute_one_attention(impl):
+    cfg = dc.replace(jbert.BertConfig.tiny_test(), attn_impl=impl)
+    params = jbert.init_params(cfg, 0)
+    ids, mask = _ids(seed=7)
+    want = np.asarray(jbert.encode(params, jnp.asarray(ids), jnp.asarray(mask), cfg))
+    got = tbert.encode(_port("bert", cfg), torch.from_numpy(ids), torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_bf16_two_layers(arch):
+    jmod, tmod, cfg, _, _ = ARCHS[arch]
+    cfg = dc.replace(cfg, num_hidden_layers=2, dtype="bfloat16")
+    params = jmod.init_params(cfg, 0)
+    model = _port(arch, cfg)
+    assert model.layers[0].__class__.__name__.endswith("Layer")
+    ids, mask = _ids(seed=11, b=16, slen=32)
+    want = np.asarray(jmod.encode(params, jnp.asarray(ids), jnp.asarray(mask), cfg))
+    got = tmod.encode(model, torch.from_numpy(ids), torch.from_numpy(mask)).numpy()
+    assert np.all(np.isfinite(got))
+    assert _cos_min(got, want) >= 0.999
+
+
+def test_bf16_weights_and_residual_dtype():
+    """Dense weights in the compute dtype, embeddings and LayerNorm
+    parameters float32, the residual stream bfloat16 between layers."""
+    cfg = dc.replace(jbert.BertConfig.tiny_test(), dtype="bfloat16")
+    model = _port("bert", cfg)
+    layer = model.layers[0]
+    assert layer.qkv.weight.dtype == torch.bfloat16
+    assert layer.attn_ln.weight.dtype == torch.float32
+    assert model.word.weight.dtype == torch.float32
+    seen = []
+    hook = layer.register_forward_hook(lambda m, a, out: seen.append(out.dtype))
+    ids, mask = _ids()
+    model(torch.from_numpy(ids), torch.from_numpy(mask))
+    hook.remove()
+    assert seen == [torch.bfloat16]
+
+
+def test_fully_masked_row_is_uniform_not_nan():
+    """The additive -1e9 bias gives a row whose keys are all masked uniform
+    weights, as the reference's does; a boolean mask would give NaN."""
+    cfg = jbert.BertConfig.tiny_test()
+    params = jbert.init_params(cfg, 0)
+    ids, mask = _ids()
+    mask[2] = 0
+    want = np.asarray(jbert.bert_forward(params, jnp.asarray(ids), jnp.asarray(mask), cfg))
+    with torch.no_grad():
+        got = _port("bert", cfg)(torch.from_numpy(ids), torch.from_numpy(mask)).numpy()
+    assert np.all(np.isfinite(got))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_padding_invariance(arch):
+    _, tmod, cfg, _, _ = ARCHS[arch]
+    model = _port(arch, cfg)
+    ids, mask = _ids(slen=24)
+    a = tmod.encode(model, torch.from_numpy(ids), torch.from_numpy(mask))
+    ids64 = np.pad(ids, ((0, 0), (0, 40)))
+    mask64 = np.pad(mask, ((0, 0), (0, 40)))
+    b = tmod.encode(model, torch.from_numpy(ids64), torch.from_numpy(mask64))
+    np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-5)
+
+
+@pytest.mark.parametrize("theta", [10000.0, 160000.0])
+def test_rope_tables_and_rotate_half(theta):
+    cos, sin = tmb.rope_tables(40, 16, theta)
+    jcos, jsin = jmb._rope_tables(40, 16, theta)
+    np.testing.assert_array_equal(cos, np.asarray(jcos))
+    np.testing.assert_array_equal(sin, np.asarray(jsin))
+    x = np.random.default_rng(0).standard_normal((3, 5, 16)).astype(np.float32)
+    np.testing.assert_array_equal(tmb.rotate_half(torch.from_numpy(x)).numpy(),
+                                  np.asarray(jmb._rotate_half(jnp.asarray(x))))
+
+
+def test_local_band_bias():
+    """The local layers' bias, against the reference's expression
+    (islands_tpu/models/modernbert.py, modernbert_forward)."""
+    cfg = jmb.ModernBertConfig.tiny_test()
+    _, mask = _ids(slen=40)
+    pad = jnp.where(jnp.asarray(mask)[:, None, None, :] > 0, 0.0, -1e9)
+    pos = jnp.arange(40)
+    in_window = jnp.abs(pos[:, None] - pos[None, :]) <= cfg.local_attention // 2
+    want = np.asarray(pad + jnp.where(in_window, 0.0, -1e9)[None, None])
+    got = tmb.band_bias(torch.from_numpy(mask), cfg.local_attention, torch.float32)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert [layer.is_global for layer in _port("modernbert", cfg).layers] == [
+        True, False, False, True]
+
+
+def test_presets():
+    assert {k: v[1] for k, v in PRESETS.items()} == {
+        "minilm-l6": 384, "minilm-l12": 384, "bge-small": 384, "bge-base": 768,
+        "bge-large": 1024, "tiny-test": 64, "modernbert-base": 768,
+        "modernbert-large": 1024, "modernbert-tiny-test": 64}
+    for name in ("minilm_l6", "minilm_l12", "bge_small", "bge_base", "bge_large", "tiny_test"):
+        assert dc.asdict(getattr(tbert.BertConfig, name)()) == \
+            dc.asdict(getattr(jbert.BertConfig, name)())
+    for name in ("modernbert_base", "modernbert_large", "tiny_test"):
+        assert dc.asdict(getattr(tmb.ModernBertConfig, name)()) == \
+            dc.asdict(getattr(jmb.ModernBertConfig, name)())
+    assert tbert.BertConfig.bge_base().hidden_size == 768
+    assert tmb.ModernBertConfig.modernbert_large().num_hidden_layers == 28
+
+
+# -- HF checkpoints ----------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def bert_ckpt(tmp_path_factory):
+    from transformers import BertConfig as HFBertConfig, BertModel
+
+    hf_cfg = HFBertConfig(vocab_size=1024, hidden_size=64, num_hidden_layers=2,
+                          num_attention_heads=4, intermediate_size=128,
+                          max_position_embeddings=128, type_vocab_size=2)
+    torch.manual_seed(0)
+    model = BertModel(hf_cfg).eval()
+    d = tmp_path_factory.mktemp("hf_bert")
+    model.save_pretrained(str(d))
+    return model, d
+
+
+@pytest.fixture(scope="module")
+def mb_ckpt(tmp_path_factory):
+    from transformers import ModernBertConfig as HFMBConfig, ModernBertModel
+
+    hf_cfg = HFMBConfig(vocab_size=1024, hidden_size=64, num_hidden_layers=4,
+                        num_attention_heads=4, intermediate_size=96,
+                        max_position_embeddings=128, local_attention=16,
+                        global_attn_every_n_layers=3, pad_token_id=0,
+                        attn_implementation="eager", reference_compile=False)
+    torch.manual_seed(1)
+    model = ModernBertModel(hf_cfg).eval()
+    d = tmp_path_factory.mktemp("hf_mb")
+    model.save_pretrained(str(d))
+    return model, d
+
+
+def _bin_copy(model, d, dst):
+    dst.mkdir()
+    shutil.copy(d / "config.json", dst / "config.json")
+    torch.save(model.state_dict(), dst / "pytorch_model.bin")
+    return dst
+
+
+@pytest.mark.parametrize("fmt", ["safetensors", "bin"])
+@pytest.mark.parametrize("arch", ["bert", "modernbert"])
+def test_hf_parity(arch, fmt, bert_ckpt, mb_ckpt, tmp_path):
+    model, d = bert_ckpt if arch == "bert" else mb_ckpt
+    if fmt == "bin":
+        d = _bin_copy(model, d, tmp_path / "bin")
+    tmod = tbert if arch == "bert" else tmb
+    params, cfg = tmod.load_hf_checkpoint(d)
+    cfg = dc.replace(cfg, dtype="float32")
+    ids, mask = _ids(seed=3 if arch == "bert" else 5)
+    with torch.no_grad():
+        hf_out = model(input_ids=torch.tensor(ids, dtype=torch.long),
+                       attention_mask=torch.tensor(mask, dtype=torch.long))
+        hf_out = hf_out.last_hidden_state.numpy()
+        ours = _port(arch, cfg, params)(torch.from_numpy(ids), torch.from_numpy(mask)).numpy()
+    on = mask.astype(bool)
+    np.testing.assert_allclose(ours[on], hf_out[on], atol=1e-4, rtol=1e-4)
+    m = mask[:, :, None].astype(np.float32)
+    hf_pooled = (hf_out * m).sum(1) / np.maximum(m.sum(1), 1e-9)
+    hf_pooled /= np.maximum(np.linalg.norm(hf_pooled, axis=-1, keepdims=True), 1e-12)
+    got = tmod.encode(_port(arch, cfg, params), torch.from_numpy(ids), torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), hf_pooled, atol=1e-4, rtol=1e-4)
+    # The loaded layout is the reference loader's, array for array.
+    jmod = jbert if arch == "bert" else jmb
+    jparams, jcfg = jmod.load_hf_checkpoint(d)
+    assert dc.asdict(jcfg) == dc.asdict(dc.replace(cfg, dtype=jcfg.dtype))
+    for group in ("embeddings", "layers"):
+        for k, v in jparams[group].items():
+            np.testing.assert_array_equal(params[group][k], np.asarray(v), err_msg=k)
+
+
+@pytest.mark.parametrize("arch", ["bert", "modernbert"])
+def test_from_pretrained_dispatches_architecture(arch, bert_ckpt, mb_ckpt):
+    _, d = bert_ckpt if arch == "bert" else mb_ckpt
+    enc = TextEncoder.from_pretrained(d, device="cpu")
+    want = ModelArchitecture.BERT if arch == "bert" else ModelArchitecture.MODERNBERT
+    assert enc.architecture is want
+    assert enc.dimension == 64
+    out = enc.embed_texts(["fn main() {}", "def f(): pass"])
+    assert out.shape == (2, 64) and np.all(np.isfinite(out))
+
+
+def test_safetensors_reader(tmp_path, bert_ckpt):
+    from safetensors.numpy import load_file, save_file
+
+    _, d = bert_ckpt
+    want = load_file(str(d / "model.safetensors"))
+    got = tbert.read_safetensors(d / "model.safetensors")
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    rng = np.random.default_rng(0)
+    mixed = {"f16": rng.standard_normal((3, 4)).astype(np.float16),
+             "f64": rng.standard_normal((2,)),
+             "i64": rng.integers(-5, 5, (2, 3)), "i32": np.arange(6, dtype=np.int32),
+             "u8": np.arange(4, dtype=np.uint8), "scalar": np.array(2.5, dtype=np.float32)}
+    save_file(mixed, str(tmp_path / "m.safetensors"), metadata={"format": "np"})
+    want = load_file(str(tmp_path / "m.safetensors"))
+    got = tbert.read_safetensors(tmp_path / "m.safetensors")
+    for k in want:
+        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_safetensors_reader_bf16(tmp_path):
+    """BF16 tensors widen to float32 (numpy has no bfloat16)."""
+    from safetensors.torch import save_file
+
+    x = torch.randn(5, 3).to(torch.bfloat16)
+    save_file({"w": x}, str(tmp_path / "b.safetensors"))
+    got = tbert.read_safetensors(tmp_path / "b.safetensors")["w"]
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, x.float().numpy())
+
+
+def test_from_json_configs(tmp_path):
+    (tmp_path / "config.json").write_text(json.dumps(
+        {"hidden_size": 32, "num_hidden_layers": 3, "local_attention": 8}))
+    assert dc.asdict(tbert.BertConfig.from_json(tmp_path / "config.json")) == \
+        dc.asdict(jbert.BertConfig.from_json(tmp_path / "config.json"))
+    assert dc.asdict(tmb.ModernBertConfig.from_json(tmp_path / "config.json")) == \
+        dc.asdict(jmb.ModernBertConfig.from_json(tmp_path / "config.json"))
