@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py            # every phase, corpora of 1,000,000 vectors
     python3 chip_smoke.py --n 262144 # a smaller config-2 corpus (depth cut only;
-                                     # phases 5-7 reuse it)
+                                     # phases 5-7 and 10 reuse it)
 
 Phases, each fatal on failure:
 1. set-up: the card's name and power limit; build the port's CUDA kernels
@@ -47,8 +47,10 @@ Phases, each fatal on failure:
    sketch gate at the headline knobs) on the loaded and the in-memory index,
    which must agree exactly; a StoredSearcher over the extended graph at
    phase 3's headline rung must keep recall@10 >= 0.90.
-7. HNSW on the same corpus: HnswIndex build, search at ef 64 and 128,
-   save_hnsw / load_hnsw (identical results), and Searcher == index.search.
+7. HNSW on the first 262,144 rows of the same corpus (a depth cut, for the
+   time limit; its own ground truth): HnswIndex build, search at ef 64 and
+   128, save_hnsw / load_hnsw (identical results), and Searcher ==
+   index.search.
 8. config 3, LEANN recompute search with the encoder on the card
    (bench_extra.py's config 3, nothing cut): 131,072 seeded chunks of 64
    token ids, minilm-l6 in bfloat16 behind the centred
@@ -61,10 +63,31 @@ Phases, each fatal on failure:
 9. config 1, the checkout's own source (bench_extra.py's config 1): the
    native loader's chunks equal to the Python chunker's (the loader must
    build), bge-base in bfloat16, LeannIndex.build and the sketch gate at
-   ef 96 on the first 256 chunks: recall@10 (>= 0.90), QPS, recompute
-   fraction, encodes/s; the card's encode of 64 rows against the CPU's.
+   ef 96 on the first 128 chunks (a depth cut from 256, for the time
+   limit): recall@10 (>= 0.90), QPS, recompute fraction, encodes/s; the
+   card's encode of 64 rows against the CPU's.
+10. config 5, the sharded archipelago (islands_tpu_torch.parallel) over
+   phase 3's corpus as 2 shards on the one card (cut from 10M on 8 chips):
+   build_sharded on the first 934,464 rows and extend_sharded by 65,536
+   (gids equal row ids), with the build and extend seconds in total and per
+   shard; the sketch gate p16 and p48 with the fused hop-merge (K1) and the
+   routed exact gate at ef 64 / i24: recall@10 (p16 and exact >= 0.90), QPS,
+   per-shard and merge ms (CUDA events); at every rung the merged top-10
+   equals a host merge of the per-shard results; fused == inline, the
+   recompute gate over per-shard InMemoryEmbeddingProviders == the stored
+   gate, save_sharded / load_sharded (identical results), bytes/vector, a
+   profile of one p16 pass.
+10b. refine: build_index_with_sketch on the first 131,072 rows with
+   refine_passes 0 and 1 (sketch path): both keep the build invariants, the
+   pass rewrites some rows, and the refined graph's recall@10 loses at most
+   0.02 at the exact gate's ef 64 and ef 10 and at config 5's p16 rung (K1).
+11. the indexer service on the card: IndexerService with minilm-l6 over the
+   checkout, stored and recompute: index_local_path, 16 text queries, the
+   same hits from a fresh service on the base path; a local git origin
+   added (add_repository), committed to and synced (sync_repository
+   re-indexes).
 The kernels' launch counts are zeroed just before each path and read just
-after it; phases 8 and 9 launch none of them.
+after it; phases 8, 9 and 11 launch none of them.
 
 Prints a JSON line of path figures, one of kernel figures, the card's name
 and power limit, and last `{"ok": true, "device": {...}}`. Exits non-zero,
@@ -81,6 +104,7 @@ import dataclasses
 import json
 import math
 import pathlib
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -107,11 +131,12 @@ from islands_tpu_torch.core.hnsw import HnswIndex
 from islands_tpu_torch.core import leann as leann_mod
 from islands_tpu_torch.core.leann import LeannIndex
 from islands_tpu_torch.core.pq import pq_scan, pq_scan_smallest
-from islands_tpu_torch.core.search import StoredSearcher
+from islands_tpu_torch.core.search import StoredSearcher, make_recompute_scorer
 from islands_tpu_torch.core.searchapi import Searcher
 from islands_tpu_torch.core.storage import load_hnsw, load_index, save_hnsw, save_index
 from islands_tpu_torch.indexer.files import chunk_files, collect_files
 from islands_tpu_torch.indexer.native import collect_chunks_native
+from islands_tpu_torch.indexer.service import EmbeddingConfig, IndexerConfig, IndexerService
 from islands_tpu_torch.models import bert as bert_mod
 from islands_tpu_torch.models.encoder import TextEncoder
 from islands_tpu_torch.models.provider import EMBED_CHUNK_BATCHES, EncoderEmbeddingProvider
@@ -138,6 +163,16 @@ from islands_tpu_torch.ops.pairwise import (
     pairwise_neg_dot,
     pairwise_neg_dot_reference,
 )
+from islands_tpu_torch.parallel import sharded as sharded_mod
+from islands_tpu_torch.parallel.mesh import make_mesh
+from islands_tpu_torch.parallel.sharded import (
+    ArchipelagoSearcher,
+    build_sharded,
+    extend_sharded,
+    load_sharded,
+    save_sharded,
+)
+from islands_tpu_torch.testing import graph_invariants, host_merge
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, the
 # non-tensor-core float32 rate and the dense TF32 and bfloat16 tensor-core
@@ -218,6 +253,7 @@ LIFE_SEARCHES = [("none/ef64", dict(gate="none", ef=64)),
                  ("sketch/ef32/p16/i12/x2", dict(gate="sketch", ef=32, promote_width=16,
                                                  max_iters=12, expand_width=2))]
 HNSW_EFS = (64, 128)
+HNSW_N = 262144  # phase 7 runs on the first rows of phase 3's corpus (a depth cut)
 SEARCHER_QUERIES = 64
 
 # Config 3 (bench_extra.py:114-219), nothing cut: 131,072 chunks of 64
@@ -239,9 +275,43 @@ ENCODER_CALL_ROWS = (512, 1024, 4096, 8192)  # and the other call sizes timed
 # 512/64, bge-base, its queries the first min(256, n) chunks.
 C1_EXTS = ("py", "md", "cpp", "toml", "yaml")
 C1_CONFIG = LeannConfig(metric=DistanceMetric.COSINE, wave_size=1024, sketch_query=True)
-C1_QUERIES, C1_BATCH, C1_EF, C1_PAD = 256, 32, 96, 128
+C1_QUERIES, C1_BATCH, C1_EF, C1_PAD = 128, 32, 96, 128  # queries cut from 256
 C1_QPS_PASSES = 2
 C1_MIN_RECALL = 0.90
+# Config 5 (BASELINE.json config 5; benches/sharded_chip.py:40-41): the
+# archipelago over phase 3's corpus, cut from 10M on 8 chips to 1M as 2
+# shards on the one card: built on the first 934,464 rows, then one
+# 65,536-row re-index (extend_sharded), so global ids equal row ids. Rungs
+# (name, gate, knobs): the sketch gate p16 and p48 with the fused hop-merge
+# (kernel K1), and the routed exact gate.
+C5_SHARDS, C5_REINDEX = 2, 65536
+C5_CONFIG = dataclasses.replace(C2_CONFIG, routing_size=65536)
+C5_RUNGS = [("p16", dict(gate="sketch", ef=32, promote_width=16, max_iters=12, expand_width=2,
+                         final_rescore=64, hop_merge="fused")),
+            ("p48", dict(gate="sketch", ef=32, promote_width=48, max_iters=10, expand_width=2,
+                         final_rescore=0, hop_merge="fused")),
+            ("exact ef64/i24", dict(gate="exact", ef=64, max_iters=24))]
+C5_MIN_RECALL = {"p16": 0.90, "exact ef64/i24": 0.90}
+# Refine (phase 10b): the first 131,072 rows, phase 3's LeannConfig with
+# refine_passes 0 and 1; the refined graph may lose at most 0.02 of
+# recall@10 at any of the points: the exact gate at ef 64, where the
+# unrefined graph is near 1, and the lowest ef and config 5's p16 rung,
+# where a graph's quality shows.
+REFINE_N, REFINE_MAX_LOSS = 131072, 0.02
+REFINE_POINTS = [("exact ef64", dict(gate="exact", ef=64)),
+                 ("exact ef10", dict(gate="exact", ef=10)),
+                 ("p16", dict(C5_RUNGS[0][1]))]
+# The service (phase 11): minilm-l6 over the checkout, 16 text queries.
+SERVICE_QUERIES = [
+    "sharded archipelago merge of per-shard top-k", "hop merge kernel warp per query",
+    "product quantizer codebook training", "brute force ground truth top-k",
+    "save index to disk and load it back", "extend the graph with new vectors",
+    "sketch gated search with promote width", "encoder layer norm in bfloat16",
+    "git clone and fetch a repository", "webhook push event triggers sync",
+    "chunk files with overlap", "routing entries from the sketch",
+    "pairwise distance tiles on tensor cores", "refine pass re-selects rows",
+    "row gather benchmark", "recompute embeddings during search"]
+
 # The card's bfloat16 encode against the port's float32 forward on the CPU:
 # the smallest per-row cosine of the pooled rows, raw and after both sides
 # subtract the CPU rows' mean (random-init embeddings share a dominant
@@ -1550,6 +1620,276 @@ def phase_config1(root: pathlib.Path) -> dict:
                 encoder_check=check, peak_device_gb=peak_gb, launches=launches)
 
 
+@contextlib.contextmanager
+def timed_per_shard(names):
+    """Wrap sharded.py's functions `names` so each call records CUDA events
+    around itself; yields the list of (name, start, stop)."""
+    events = []
+
+    def wrap(name, fn):
+        def timed(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            stop.record()
+            events.append((name, start, stop))
+            return out
+        return timed
+
+    with contextlib.ExitStack() as stack:
+        for name in names:
+            stack.enter_context(unittest.mock.patch.object(
+                sharded_mod, name, wrap(name, getattr(sharded_mod, name))))
+        yield events
+
+
+def event_ms(events, name, n_shards):
+    """ms per call of `name` from timed_per_shard's events, by shard when
+    the calls cycle over the shards (n_shards > 1)."""
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for n, a, b in events if n == name]
+    return [float(np.mean(ms[s::n_shards])) for s in range(n_shards)]
+
+
+def phase_sharded(x, queries, true_ids) -> dict:
+    """Config 5 on one card: build_sharded, extend_sharded, the rungs, the
+    identities (fused == inline, merge == host merge, recompute == stored,
+    loaded == in-memory) and a profile of one p16 pass."""
+    n, n_queries = x.shape[0], queries.shape[0]
+    n_prefix = n - C5_REINDEX
+    metric = C5_CONFIG.metric
+    zero_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_mesh(C5_SHARDS)
+    with timed_per_shard(["_build_shard"]) as events:
+        t0 = time.perf_counter()
+        idx = build_sharded(x[:n_prefix], C5_CONFIG, mesh)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        build_shard_s = [ms / 1e3 for ms in event_ms(events, "_build_shard", C5_SHARDS)]
+    with timed_per_shard(["_extend_shard"]) as events:
+        t0 = time.perf_counter()
+        idx = extend_sharded(idx, x[n_prefix:])
+        torch.cuda.synchronize()
+        extend_s = time.perf_counter() - t0
+        extend_shard_s = [ms / 1e3 for ms in event_ms(events, "_extend_shard", C5_SHARDS)]
+    log(f"  build_sharded {n_prefix}x{x.shape[1]} as {C5_SHARDS} shards: {build_s:.3f} s = "
+        f"{n_prefix / build_s:.1f} vectors/s (per shard {build_shard_s[0]:.3f} / "
+        f"{build_shard_s[1]:.3f} s); extend_sharded by {C5_REINDEX}: {extend_s:.3f} s = "
+        f"{C5_REINDEX / extend_s:.1f} vectors/s (per shard {extend_shard_s[0]:.3f} / "
+        f"{extend_shard_s[1]:.3f} s)")
+    gids = idx.gids.cpu().numpy()
+    real = np.concatenate([gids[s, :c] for s, c in enumerate(idx.counts)])
+    if idx.num_vectors != n or not np.array_equal(np.sort(real), np.arange(n)):
+        raise AssertionError("the archipelago's global ids are not the corpus rows")
+    for s, c in enumerate(idx.counts):
+        graph_invariants(idx.neighbors[s], idx.degrees[s], int(c), f"shard {s}")
+    graph_bytes = sum(t.numel() * t.element_size() for t in (
+        idx.neighbors, idx.degrees, idx.gids, idx.node_sketch, idx.nbr_sketch, idx.routing))
+    log(f"  counts {list(map(int, idx.counts))}, n_local {idx.n_local}; graph + gids + sketches "
+        f"{graph_bytes / n:.2f} B/vector in memory (stored rows {4 * x.shape[1]} B more)")
+
+    searcher = ArchipelagoSearcher(idx)
+    rungs = []
+    for name, kw in C5_RUNGS:
+        before = hop_merge.launches
+        d, ids = searcher.search(queries, k=10, **kw)
+        hops = hop_merge.launches - before
+        rec = recall_at_10(ids, true_ids)
+        err = check_results(f"config 5 {name}", d, ids, x, queries, metric)
+        want_d, want_i = host_merge(*searcher.search_shards(queries, k=10, **kw), idx.gids,
+                                    idx.counts, 10)
+        if not (np.array_equal(ids.cpu().numpy(), want_i)
+                and np.array_equal(d.cpu().numpy(), want_d)):
+            raise AssertionError(f"config 5 {name}: the merged top-10 differs from the host "
+                                 "merge of the per-shard results")
+        qps = timed_qps(lambda: searcher.search(queries, k=10, **kw), n_queries)
+        with timed_per_shard(["batched_sketch_gated_query", "batched_search",
+                              "_merge_topk"]) as events:
+            for _ in range(3):
+                searcher.search(queries, k=10, **kw)
+            shard_fn = "batched_sketch_gated_query" if kw["gate"] == "sketch" else "batched_search"
+            shard_ms = event_ms(events, shard_fn, C5_SHARDS)
+            merge_ms = event_ms(events, "_merge_topk", 1)[0]
+        rungs.append(dict(rung=name, **kw, recall=rec, qps=qps[len(qps) // 2], qps_runs=qps,
+                          qps_spread=qps[-1] / qps[0] - 1, hops_k1=hops,
+                          shard_ms=shard_ms, merge_ms=merge_ms, max_abs_dist_err=err))
+        log(f"  rung {name}: recall@10 {rec:.4f}, " + qps_line(qps)
+            + f"; per-shard ms {shard_ms[0]:.3f} / {shard_ms[1]:.3f}, merge ms {merge_ms:.4f} "
+            f"(CUDA events); {hops} K1 launches; merged == host merge")
+        if name in C5_MIN_RECALL and rec < C5_MIN_RECALL[name]:
+            raise AssertionError(f"config 5 {name}: recall@10 {rec:.4f} < {C5_MIN_RECALL[name]}")
+    kw16 = dict(C5_RUNGS[0][1])
+    profile = profile_pass(lambda: searcher.search(queries, k=10, **kw16))
+
+    sub = queries[:AB_QUERIES]
+    fused = searcher.search(sub, k=10, **kw16)
+    inline = searcher.search(sub, k=10, **dict(kw16, hop_merge="inline"))
+    if not (torch.equal(fused[0], inline[0]) and torch.equal(fused[1], inline[1])):
+        raise AssertionError("config 5: fused and inline hop-merge disagree")
+    stored = searcher.search(queries, k=10, **kw16)
+    providers = [InMemoryEmbeddingProvider(idx.x_prepped[s]).embed for s in range(C5_SHARDS)]
+    recompute = ArchipelagoSearcher(idx, exact_scorer=make_recompute_scorer(metric),
+                                    exact_ctx=providers).search(queries, k=10, **kw16)
+    if not (torch.equal(stored[0], recompute[0]) and torch.equal(stored[1], recompute[1])):
+        raise AssertionError("config 5: the recompute gate differs from the stored gate")
+    log(f"  fused == inline on {AB_QUERIES} queries; the recompute gate over per-shard "
+        "InMemoryEmbeddingProviders == the stored gate")
+    launches = read_launches()
+
+    scratch = pathlib.Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    free_gb = shutil.disk_usage(scratch).free / 1e9
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        path = pathlib.Path(tmp) / "archipelago.shrd"
+        t0 = time.perf_counter()
+        nbytes = save_sharded(idx, path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load_sharded(path, mesh)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    loaded_searcher = ArchipelagoSearcher(loaded)
+    for name, kw in (C5_RUNGS[0], C5_RUNGS[2]):
+        a = loaded_searcher.search(queries, k=10, **kw)
+        b = searcher.search(queries, k=10, **kw)
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            raise AssertionError(f"config 5: the loaded archipelago differs at {name}")
+    del loaded, loaded_searcher
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  save_sharded {save_s:.3f} s, load_sharded {load_s:.3f} s, {nbytes / n:.2f} file "
+        f"bytes/vector ({free_gb:.1f} GB free before); loaded == in-memory at p16 and exact; "
+        f"peak device memory {peak_gb:.2f} GB")
+    log(f"  kernel launches on the config-5 path: {launches}")
+    if launches["hop_merge"] <= 0:
+        raise AssertionError("the config-5 path never launched the hop_merge kernel")
+    return dict(n=n, shards=C5_SHARDS, n_prefix=n_prefix, reindex=C5_REINDEX,
+                n_local=idx.n_local, build_seconds=build_s, build_shard_seconds=build_shard_s,
+                extend_seconds=extend_s, extend_shard_seconds=extend_shard_s,
+                graph_bytes_per_vector=graph_bytes / n, file_bytes_per_vector=nbytes / n,
+                save_seconds=save_s, load_seconds=load_s, rungs=rungs, headline_profile=profile,
+                peak_device_gb=peak_gb, launches=launches)
+
+
+def phase_refine(x, queries) -> dict:
+    """One refine pass on the sketch path against none, at REFINE_N rows:
+    the invariants, the share of rows the pass rewrote, and recall@10 at
+    REFINE_POINTS, the low ones where the unrefined graph is short of 1."""
+    xs = x[:REFINE_N]
+    metric = C2_CONFIG.metric
+    _, true_ids = brute_force_topk(queries, xs, 10, metric, batch=65536)
+    zero_launches()
+    out, graphs = {}, []
+    for passes in (0, 1):
+        cfg = dataclasses.replace(C2_CONFIG, refine_passes=passes)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph, sketch = build_index_with_sketch(xs, cfg)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        graph.validate()
+        graph_invariants(graph.neighbors, graph.degrees, REFINE_N, f"refine_passes={passes}")
+        graphs.append(graph)
+        searcher = StoredSearcher(graph, xs, metric, sketch=sketch, routing_size=65536)
+        recalls = {}
+        for name, kw in REFINE_POINTS:
+            d, ids = searcher.search(queries, k=10, **kw)
+            check_results(f"refine_passes={passes} {name}", d, ids, xs, queries, metric)
+            recalls[name] = recall_at_10(ids, true_ids)
+        out[passes] = dict(build_seconds=build_s, recall=recalls)
+        log(f"  refine_passes={passes}: build {build_s:.3f} s, invariants hold, recall@10 "
+            + ", ".join(f"{k} {v:.4f}" for k, v in recalls.items()))
+    rewritten = float((graphs[0].neighbors != graphs[1].neighbors).any(dim=1).float().mean())
+    gains = {name: out[1]["recall"][name] - out[0]["recall"][name] for name, _ in REFINE_POINTS}
+    log(f"  the refine pass rewrote {rewritten:.4f} of the rows; recall gains "
+        + ", ".join(f"{k} {v:+.4f}" for k, v in gains.items())
+        + " (the reference read +0.035 at 131k on its chip)")
+    if rewritten == 0.0:
+        raise AssertionError("the refine pass left every row as it was")
+    for name, gain in gains.items():
+        if gain < -REFINE_MAX_LOSS:
+            raise AssertionError(f"the refined graph loses {-gain:.4f} of recall at {name}")
+    return dict(n=REFINE_N, passes=out, rows_rewritten=rewritten, recall_gain=gains,
+                launches=read_launches())
+
+
+def _git(args, cwd) -> None:
+    subprocess.run(["git", *args], cwd=cwd, check=True, capture_output=True, timeout=120,
+                   env={"GIT_AUTHOR_NAME": "smoke", "GIT_AUTHOR_EMAIL": "smoke@localhost",
+                        "GIT_COMMITTER_NAME": "smoke", "GIT_COMMITTER_EMAIL": "smoke@localhost",
+                        "PATH": "/usr/bin:/bin:/usr/local/bin", "HOME": str(cwd)})
+
+
+def phase_service(root: pathlib.Path) -> dict:
+    """IndexerService with minilm-l6 on the card over the checkout, stored
+    and recompute: index, 16 queries, the same answers from a fresh service
+    on the base path; then a local git origin added, committed to and
+    synced (which re-indexes)."""
+    zero_launches()
+    out = {}
+    scratch = root / "build"
+    scratch.mkdir(exist_ok=True)
+    # A hidden directory, which the file walker skips: the service's own
+    # files stay out of the corpus it indexes.
+    with tempfile.TemporaryDirectory(dir=scratch, prefix=".service-") as tmp:
+        for mode in ("stored", "recompute"):
+            cfg = IndexerConfig(base_path=str(pathlib.Path(tmp) / mode), embedding=EmbeddingConfig(
+                kind="encoder", model="minilm-l6", recompute=mode == "recompute"))
+            svc = IndexerService(cfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            info = svc.index_local_path(root, "checkout")
+            torch.cuda.synchronize()
+            index_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            hits = [svc.search(q, top_k=10) for q in SERVICE_QUERIES]
+            query_ms = (time.perf_counter() - t0) * 1e3 / len(SERVICE_QUERIES)
+            if not all(len(h) == 10 and all(math.isfinite(r["score"]) for r in h)
+                       for h in hits):
+                raise AssertionError(f"service ({mode}): a query did not return 10 finite hits")
+            fresh = IndexerService(cfg)
+            if [fresh.search(q, top_k=10) for q in SERVICE_QUERIES] != hits:
+                raise AssertionError(f"service ({mode}): a fresh service answers differently")
+            out[mode] = dict(chunks=info.num_chunks, files=info.num_files, index_seconds=index_s,
+                             query_ms=query_ms, size_bytes=info.size_bytes)
+            log(f"  {mode}: indexed {info.num_files} files, {info.num_chunks} chunks in "
+                f"{index_s:.3f} s; {query_ms:.1f} ms per query (16 queries, top 10); "
+                f"index.leann {info.size_bytes / info.num_chunks:.2f} B/chunk; a fresh "
+                "service on the base path returns identical hits")
+        origin = pathlib.Path(tmp) / "origin"
+        shutil.copytree(root / "islands_tpu_torch" / "indexer", origin,
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        _git(["init", "-b", "main"], origin)
+        _git(["add", "-A"], origin)
+        _git(["commit", "-m", "init"], origin)
+        svc = IndexerService(IndexerConfig(base_path=str(pathlib.Path(tmp) / "git"),
+                                           embedding=EmbeddingConfig(kind="encoder",
+                                                                     model="minilm-l6")))
+        t0 = time.perf_counter()
+        info = svc.add_repository("github:smoke/origin", clone_url=str(origin))
+        add_s = time.perf_counter() - t0
+        (origin / "extra_feature.py").write_text("def extra_feature():\n    return 'synced'\n")
+        _git(["add", "-A"], origin)
+        _git(["commit", "-m", "feature"], origin)
+        t0 = time.perf_counter()
+        if svc.sync_repository("smoke/origin") is not True:
+            raise AssertionError("service: sync after a commit did not re-index")
+        sync_s = time.perf_counter() - t0
+        info2 = svc.get_index("smoke_origin")
+        if info2.commit == info.commit or info2.num_chunks <= info.num_chunks:
+            raise AssertionError("service: the re-index missed the new commit")
+        if svc.sync_repository("smoke/origin") is not False:
+            raise AssertionError("service: a sync with no new commit re-indexed")
+        log(f"  git: add_repository {add_s:.3f} s ({info.num_chunks} chunks), commit, "
+            f"sync_repository re-indexed in {sync_s:.3f} s ({info2.num_chunks} chunks)")
+        out["git"] = dict(add_seconds=add_s, sync_seconds=sync_s, chunks=info2.num_chunks)
+    out["launches"] = read_launches()
+    log(f"  kernel launches on the service path: {out['launches']}")
+    return out
+
+
 def build_kernels() -> None:
     """nvcc every source at once (one process each) and log what ptxas says
     of its kernels' registers and shared memory."""
@@ -1635,9 +1975,11 @@ def main() -> int:
                                 config2["headline_recall"])
     torch.cuda.empty_cache()
     log(f"  phases 1-6: {time.perf_counter() - t_start:.1f} s")
-    log(f"phase 7: HNSW at {x.shape[0]}x{DIM}")
-    hnsw = phase_hnsw(x, queries, true_ids, metric)
-    del x, queries, true_ids
+    hn = min(HNSW_N, x.shape[0])
+    log(f"phase 7: HNSW at {hn}x{DIM} (the first rows of phase 3's corpus)")
+    _, hnsw_true_ids = brute_force_topk(queries, x[:hn], 10, metric, batch=65536)
+    hnsw = phase_hnsw(x[:hn], queries, hnsw_true_ids, metric)
+    del hnsw_true_ids
     torch.cuda.empty_cache()
     log(f"  phases 1-7: {time.perf_counter() - t_start:.1f} s")
     t_phase = time.perf_counter()
@@ -1648,12 +1990,30 @@ def main() -> int:
     t_phase = time.perf_counter()
     log("phase 9: config 1, the checkout's own source, bge-base")
     config1 = phase_config1(here)
+    torch.cuda.empty_cache()
     log(f"  phase 9: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    log(f"phase 10: config 5, the archipelago at {x.shape[0]}x{DIM} as {C5_SHARDS} shards "
+        "on one card")
+    config5 = phase_sharded(x, queries, true_ids)
+    torch.cuda.empty_cache()
+    log(f"  phase 10: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    log(f"phase 10b: refine_passes 0 and 1 at {REFINE_N}x{DIM}")
+    refine = phase_refine(x, queries)
+    del x, queries, true_ids
+    torch.cuda.empty_cache()
+    log(f"  phase 10b: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    log("phase 11: the indexer service on the card, minilm-l6 over the checkout")
+    service = phase_service(here)
+    log(f"  phase 11: {time.perf_counter() - t_phase:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     paths = {"config2": config2, "config4": config4, "ops_api": ops_api,
              "gather_bench": bench, "lifecycle": lifecycle, "hnsw": hnsw,
-             "config3": config3, "config1": config1}
+             "config3": config3, "config1": config1, "config5": config5, "refine": refine,
+             "service": service}
     kernels = []
     for name, fig in (("hop_merge", k1), ("gated_adc", k2), ("adc_scan", k3),
                       ("adc_scan_smallest", k3s), ("pairwise_l2", k4a), ("pairwise_neg_dot", k4b), ("row_gather", k5)):

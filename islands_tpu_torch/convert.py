@@ -4,7 +4,8 @@ The caller hands over the JAX package's CsrGraph, SketchIndex, PQ and HNSW
 fields as numpy arrays (`np.asarray(field)`); these functions build the
 port's objects from them, so the port's search can run on the reference's
 own graph, sketch, codebook and layers (k-means++ and the projection draw
-from jax.random, which torch cannot redo).
+from jax.random, which torch cannot redo). `sharded_from_numpy` carries a
+ShardedIndex's arrays across onto a port mesh.
 
 `bert_from_numpy` and `modernbert_from_numpy` turn encoder parameters in
 the reference's layout (dense weights [in, out], q/k/v fused, layers
@@ -27,6 +28,10 @@ from islands_tpu_torch.device import resolve_device, to_device
 from islands_tpu_torch.models.bert import BertConfig, BertModel
 from islands_tpu_torch.models.modernbert import ModernBertConfig, ModernBertModel
 from islands_tpu_torch.ops.proj import SketchIndex
+from islands_tpu_torch.parallel.sharded import sharded_from_numpy
+
+__all__ = ["bert_from_numpy", "graph_from_numpy", "hnsw_from_numpy", "leann_from_numpy",
+           "modernbert_from_numpy", "pq_from_numpy", "sharded_from_numpy", "sketch_from_numpy"]
 
 
 def graph_from_numpy(neighbors, degrees, levels, entry_point, max_level,

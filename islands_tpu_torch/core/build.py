@@ -15,7 +15,11 @@ The reference's jitted wave step donates the graph state; here `neighbors`,
 nodes `nbr_sketch` is ~4 GB). Its `mode="drop"` scatters become masked
 index writes: out-of-range targets are filtered out before `index_put_`.
 Torch indexes with int64, so the reference's int32-overflow fallback for
-large flat scatters is not needed. `refine_passes > 0` is not ported yet.
+large flat scatters is not needed.
+
+With `config.refine_passes > 0` the build runs refine passes after the
+insertion waves: every node re-searches the complete graph and re-selects
+its row (`wave_body(refine=True)`).
 
 `extend_graph` appends nodes to a built graph with the same waves, on the
 exact path (no sketch), the incremental re-index of LeannIndex.extend and
@@ -226,10 +230,17 @@ def _scatter_reverse_edges(neighbors, degrees, sel_ids, sel_dists, src_ids,
 
 def wave_body(neighbors, degrees, nbr_sketch, s: int, entry: int, x_prepped,
               count: int, sketch_ctx=None, *, config: LeannConfig, wave: int,
-              buffer_width: int, max_iters: int) -> None:
+              buffer_width: int, max_iters: int, refine: bool = False) -> None:
     """One insertion wave: insert nodes [s, s+wave) IN PLACE. `x_prepped`
     is padded to at least s + wave rows; rows >= `count` never insert.
-    `sketch_ctx` = (node_sketch, node_proj_q, routing_ids, w, scale)."""
+    `sketch_ctx` = (node_sketch, node_proj_q, routing_ids, w, scale).
+
+    `refine=True` re-selects the rows of already-inserted nodes instead: the
+    pool is self-masked, each node's current row joins the candidates with
+    exact distances, candidates are deduped by id, there is no intra-wave
+    brute force, and reverse edges whose destination row already holds the
+    source are dropped (rows at degree <= m0 are never repaired, so they
+    would keep the duplicate)."""
     n = neighbors.shape[0]
     dev = neighbors.device
     m0 = config.m0
@@ -266,8 +277,27 @@ def wave_body(neighbors, degrees, nbr_sketch, s: int, entry: int, x_prepped,
             q, x_prepped, neighbors, entry, scorer=make_stored_scorer(metric), ef=efc,
             expand_width=config.expand_width, max_iters=max_iters)
 
-    # 2. intra-wave brute-force candidates
-    if intra_k > 0:
+    if refine:
+        self_hit = g_ids == wave_ids[:, None]
+        g_ids = torch.where(self_hit, SENTINEL, g_ids)
+        g_dists = torch.where(self_hit, _INF, g_dists)
+        cur_rows = neighbors[torch.clamp(wave_ids, 0, n - 1).long()]  # [W, BW]
+        cur_ok = (cur_rows != SENTINEL) & wave_ok[:, None]
+        cur_emb = x_prepped[torch.clamp(cur_rows, 0, x_prepped.shape[0] - 1).long()]
+        cur_d = torch.where(cur_ok, dist_ops.rows_distance(q, cur_emb, metric), _INF)
+        cand_ids = torch.cat([g_ids, torch.where(cur_ok, cur_rows, SENTINEL)], dim=1)
+        cand_dists = torch.cat([g_dists, cur_d], dim=1)
+        # Dedup by id: a stable sort on the id alone (lax.sort, num_keys=1),
+        # so the pool's copy of a duplicate comes first and wins.
+        key = torch.where(cand_ids == SENTINEL, n, cand_ids)
+        order = argsort(key)
+        key_s = key.gather(1, order)
+        prev = torch.cat([key_s.new_full((wave, 1), -2), key_s[:, :-1]], dim=1)
+        drop = (key_s == prev) | (key_s >= n)
+        cand_ids = torch.where(drop, SENTINEL, cand_ids.gather(1, order))
+        cand_dists = torch.where(drop, _INF, cand_dists.gather(1, order))
+    # 2. intra-wave brute-force candidates (insertion waves only)
+    elif intra_k > 0:
         dq = dist_ops.pairwise_distance(q, q, metric)
         eye = torch.eye(wave, dtype=torch.bool, device=dev)
         dq = torch.where(~wave_ok[None, :] | eye, _INF, dq)
@@ -307,6 +337,9 @@ def wave_body(neighbors, degrees, nbr_sketch, s: int, entry: int, x_prepped,
     # 4b. reverse edges
     src = wave_ids[:, None].expand(wave, m0)
     edge_valid = (sel_ids != SENTINEL) & wave_ok[:, None]
+    if refine:
+        dest_rows = neighbors[torch.clamp(sel_ids, 0, n - 1).long()]  # [W, m0, BW]
+        edge_valid = edge_valid & ~torch.any(dest_rows == src[:, :, None], dim=-1)
     _scatter_reverse_edges(neighbors, degrees, sel_ids, sel_dists, src, edge_valid,
                            nbr_sketch, node_sketch if nbr_sketch is not None else None)
 
@@ -363,8 +396,6 @@ def build_index_with_sketch(x, config: LeannConfig | None = None, levels=None,
     pass the reference's matrix). Runs on CUDA unless `device="cpu"`."""
     config = config or LeannConfig()
     config.validate()
-    if config.refine_passes > 0:
-        raise NotImplementedError("refine_passes > 0 is not ported yet")
     dev = resolve_device(device)
     x = to_device(x, dev, torch.float32)
     n = int(x.shape[0])
@@ -439,15 +470,33 @@ def build_index_with_sketch(x, config: LeannConfig | None = None, levels=None,
                       max_iters=max_iters)
             s += wave
 
+    # Refine passes: every node re-searches the complete graph from the
+    # final entry point, in waves of max_wave from 0; on the sketch path one
+    # routing draw per wave (numpy, so it equals the reference's).
+    max_level = int(levels.max())
+    entry_point = int(np.argmax(levels == max_level))
+    if config.refine_passes > 0 and n > 1:
+        max_iters = 4 * max(config.ef_construction // config.expand_width, 1) + 16
+        rng_r = np.random.default_rng(config.seed ^ 0x0F1E)
+        for _ in range(config.refine_passes):
+            for s in range(0, n, max_wave):
+                sketch_ctx = None
+                if use_sketch:
+                    routing = torch.as_tensor(rng_r.integers(0, n, size=config.routing_size),
+                                              dtype=torch.int32, device=dev)
+                    sketch_ctx = (node_sketch, node_proj_q, routing, w, scale)
+                wave_body(neighbors, degrees, nbr_sketch, s, entry_point, x_padded, n,
+                          sketch_ctx, config=config, wave=max_wave,
+                          buffer_width=buffer_width, max_iters=max_iters, refine=True)
+
     # final sweep: repair any node still over m0, crop slack + padding.
     _final_sweep(neighbors, degrees, nbr_sketch, x_padded, m0, config.metric,
                  config.diversify, w, scale)
-    max_level = int(levels.max())
     graph = CsrGraph(
         neighbors=neighbors[:n, :m0].contiguous(),
         degrees=degrees[:n].contiguous(),
         levels=to_device(levels, dev),
-        entry_point=int(np.argmax(levels == max_level)),
+        entry_point=entry_point,
         max_level=max_level,
     )
     sketch_index = None

@@ -314,7 +314,9 @@ def decode_sketch(data: bytes, neighbors: torch.Tensor) -> SketchIndex:
                        node_sketch=node_t, nbr_sketch=nbr)
 
 
-def _config_meta(config) -> dict:
+def config_to_dict(config) -> dict:
+    """A config as the header JSON holds it: its fields in order, enums as
+    their values."""
     cfg = dataclasses.asdict(config)
     for key in ("metric", "pruning_strategy"):
         if key in cfg:
@@ -325,7 +327,13 @@ def _config_meta(config) -> dict:
 def _config_from_meta(meta: IndexMetadata, cls):
     """The config of META; keys unknown to `cls` are ignored, as the
     reference ignores keys of older format revisions."""
-    cfg = dict(meta.extra.get("config", {}))
+    return config_from_dict(meta.extra.get("config", {}), cls)
+
+
+def config_from_dict(cfg: dict, cls):
+    """A `cls` config from its saved dict (`config_to_dict`'s), ignoring
+    unknown keys; the default config when `cfg` is empty."""
+    cfg = dict(cfg)
     if not cfg:
         return cls()
     cfg["metric"] = DistanceMetric(cfg.get("metric", "cosine"))
@@ -335,7 +343,8 @@ def _config_from_meta(meta: IndexMetadata, cls):
     return cls(**{k: v for k, v in cfg.items() if k in known})
 
 
-def _write_file(path: Path, data: bytes) -> int:
+def write_atomic(path: Path, data: bytes) -> int:
+    """Write `data` through a .tmp file renamed over `path`; -> its size."""
     tmp = path.with_suffix(path.suffix + ".tmp")
     tmp.write_bytes(data)
     tmp.replace(path)
@@ -364,7 +373,7 @@ def save_index(index, path: str | Path, persist_sketch: bool = True) -> int:
     graph = index.graph
     if graph is None:
         raise StorageError("index is not built")
-    cfg = _config_meta(index.config)
+    cfg = config_to_dict(index.config)
     metric = cfg["metric"]
     meta = IndexMetadata.new(graph.num_nodes, index.dimension or 0, metric)
     meta.extra["config"] = cfg
@@ -380,7 +389,7 @@ def save_index(index, path: str | Path, persist_sketch: bool = True) -> int:
                                                centroids.shape[1]))
     if persist_sketch and index.sketch is not None:
         w.write_chunk(b"SKCH", encode_sketch(index.sketch))
-    return _write_file(path, buf.getvalue())
+    return write_atomic(path, buf.getvalue())
 
 
 def load_index(path: str | Path, device=None):
@@ -427,7 +436,7 @@ def save_hnsw(index, path: str | Path) -> int:
     path.parent.mkdir(parents=True, exist_ok=True)
     if index.layer0 is None:
         raise StorageError("index is not built")
-    cfg = _config_meta(index.config)
+    cfg = config_to_dict(index.config)
     metric = cfg["metric"]
     meta = IndexMetadata.new(index.num_nodes, index.dimension or 0, metric)
     meta.extra["config"] = cfg
@@ -448,7 +457,7 @@ def save_hnsw(index, path: str | Path) -> int:
         nbrs = layer.neighbors.cpu().numpy().astype("<i4")
         w.write_chunk(b"HL%02d" % li, _HL_HEADER.pack(ids.shape[0], nbrs.shape[1])
                       + ids.tobytes() + np.ascontiguousarray(nbrs).tobytes())
-    return _write_file(path, buf.getvalue())
+    return write_atomic(path, buf.getvalue())
 
 
 def load_hnsw(path: str | Path, device=None):

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 from islands_tpu.core import build as jbuild
 from islands_tpu.core.config import DistanceMetric as JM
 from islands_tpu.core.config import LeannConfig as JConfig
+from islands_tpu_torch import testing
 from islands_tpu_torch.convert import graph_from_numpy
 from islands_tpu_torch.core import build as tbuild
 from islands_tpu_torch.core.config import DistanceMetric as TM
@@ -30,15 +31,9 @@ SMALL = dict(m=8, m0=16, ef_construction=48, ef_search=48, wave_size=128,
 
 
 def graph_invariants(nbrs, degs, n, m0):
-    """tests/test_build.py's invariants on numpy arrays."""
+    """tests/test_build.py's invariants on an [n, m0] graph."""
     assert nbrs.shape == (n, m0)
-    assert np.all(degs <= m0)
-    for i in range(n):
-        row = nbrs[i, : degs[i]]
-        assert np.all((row >= 0) & (row < n)), i
-        assert np.all(nbrs[i, degs[i]:] == -1), i
-        assert i not in row, i
-        assert len(set(row.tolist())) == len(row), i
+    testing.graph_invariants(nbrs, degs, n)
 
 
 def _recall(graph, x, q, metric):
@@ -148,6 +143,74 @@ def test_small_and_edge_sizes(n):
 def test_empty_and_unported_options():
     g = tbuild.build_index(np.zeros((0, 8), np.float32), TConfig(**SMALL), device="cpu")
     assert g.num_nodes == 0
-    with pytest.raises(NotImplementedError):
-        tbuild.build_index(make_vectors(50, 8), TConfig(**SMALL, refine_passes=1),
+    # refine_passes > 0 is ported: the refined graph keeps the invariants.
+    g = tbuild.build_index(make_vectors(50, 8), TConfig(**SMALL, refine_passes=1),
                            device="cpu")
+    graph_invariants(g.neighbors.numpy(), g.degrees.numpy(), 50, 16)
+
+
+def test_refine_no_duplicate_edges_at_low_degree():
+    """tests/test_build.py's case: refine re-scatters reverse edges of nodes
+    whose edges exist, and rows that stay at degree <= m0 are never
+    repaired, so without the refine-mode mask they would keep duplicate
+    ids. A large m0 against n keeps most rows under m0."""
+    n = 220
+    cfg = TConfig(**dict(SMALL, m0=32, reverse_slack=24, refine_passes=1))
+    g = tbuild.build_index(make_vectors(n, 16, seed=41), cfg, device="cpu")
+    graph_invariants(g.neighbors.numpy(), g.degrees.numpy(), n, 32)
+
+
+@pytest.mark.parametrize("defect", ["self", "duplicate", "out_of_range", "stale_slot",
+                                    "padding_edge", "over_degree"])
+def test_graph_invariants_catch_broken_graphs(defect):
+    """The shared checker passes a real graph and rejects each kind of break."""
+    n = 40
+    g = tbuild.build_index(make_vectors(n, 8, seed=42), TConfig(**SMALL), device="cpu")
+    nbrs, degs = g.neighbors.clone(), g.degrees.clone()
+    testing.graph_invariants(nbrs, degs, n)
+    r = int(torch.argmax(degs))
+    d = int(degs[r])
+    if defect == "self":
+        nbrs[r, 0] = r
+    elif defect == "duplicate":
+        nbrs[r, 1] = nbrs[r, 0]
+    elif defect == "out_of_range":
+        nbrs[r, 0] = n
+    elif defect == "stale_slot":
+        degs[r] = d - 1
+    elif defect == "padding_edge":
+        n -= 1  # the last row becomes padding, and it keeps its edges
+    else:
+        degs[r] = nbrs.shape[1] + 1
+    with pytest.raises(AssertionError):
+        testing.graph_invariants(nbrs, degs, n)
+
+
+@pytest.mark.parametrize("sketch_build", [False, True])
+def test_refined_build_matches_reference_recall(sketch_build):
+    """One refine pass on the exact and on the sketch path (one routing draw
+    per wave): the invariants, the reference's refined graph edge for edge
+    (so the stable id-only dedup and the reverse-edge mask hold), one that
+    differs from the unrefined graph, and recall@10 within +-0.01."""
+    n, dim = 600, 32
+    x = make_vectors(n, dim, seed=20)
+    q = make_vectors(32, dim, seed=21)
+    kw = dict(SMALL, refine_passes=1, sketch_build=sketch_build, metric="euclidean")
+    jcfg = JConfig(**dict(kw, metric=JM.EUCLIDEAN))
+    levels = jbuild.sample_levels(n, jcfg.ml, jcfg.max_layers, jcfg.seed)
+    jg, js = jbuild.build_index_with_sketch(x, jcfg, levels)
+    g, _ = tbuild.build_index_with_sketch(x, TConfig(**dict(kw, metric=TM.EUCLIDEAN)), levels,
+                                          w=np.asarray(js.w), device="cpu")
+    graph_invariants(g.neighbors.numpy(), g.degrees.numpy(), n, 16)
+    np.testing.assert_array_equal(g.neighbors.numpy(), np.asarray(jg.neighbors))
+    np.testing.assert_array_equal(g.degrees.numpy(), np.asarray(jg.degrees))
+    g0, _ = tbuild.build_index_with_sketch(
+        x, TConfig(**dict(kw, refine_passes=0, metric=TM.EUCLIDEAN)), levels,
+        w=np.asarray(js.w), device="cpu")
+    assert (g0.neighbors != g.neighbors).any(dim=1).float().mean() > 0.5
+    ref = graph_from_numpy(np.asarray(jg.neighbors), np.asarray(jg.degrees),
+                           np.asarray(jg.levels), int(jg.entry_point), int(jg.max_level),
+                           device="cpu")
+    r_port, r_ref = _recall(g, x, q, TM.EUCLIDEAN), _recall(ref, x, q, TM.EUCLIDEAN)
+    assert abs(r_port - r_ref) <= 0.01, (r_port, r_ref)
+    assert r_port >= 0.85

@@ -177,6 +177,33 @@ def test_guard_covers_the_models_and_indexer_modules(module):
     assert module in _port_modules()
 
 
+@pytest.mark.parametrize("module", [
+    "islands_tpu_torch.parallel", "islands_tpu_torch.parallel.mesh",
+    "islands_tpu_torch.parallel.sharded", "islands_tpu_torch.testing",
+    "islands_tpu_torch.providers", "islands_tpu_torch.providers.base",
+    "islands_tpu_torch.indexer.errors", "islands_tpu_torch.indexer.state",
+    "islands_tpu_torch.indexer.manager", "islands_tpu_torch.indexer.watcher",
+    "islands_tpu_torch.indexer.service"])
+def test_guard_covers_the_archipelago_and_service_modules(module):
+    # The seventh slice's modules (the sharded archipelago, the providers'
+    # base layer, the indexer service chain) are among those the guards
+    # below import and parse.
+    assert module in _port_modules()
+
+
+def test_mesh_defaults_to_cuda_and_never_falls_back():
+    from islands_tpu_torch.parallel import make_mesh, make_multislice_mesh
+
+    if torch.cuda.is_available():
+        assert make_mesh().device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh(2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_multislice_mesh(2, 2)
+    assert make_mesh(2, devices=["cpu"]).device.type == "cpu"
+
+
 @pytest.mark.parametrize("flags", [(False, True), (True, False), (True, True), (False, False)])
 def test_import_leaves_tf32_flags(flags):
     """Importing every module of the port leaves the process-wide matmul and

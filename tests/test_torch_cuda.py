@@ -24,6 +24,9 @@ from islands_tpu_torch.ops.adc import (
 )
 from islands_tpu_torch.ops.gather import row_gather, row_gather_reference
 from islands_tpu_torch.ops.hop_merge import HOLE, hop_merge, hop_merge_reference
+from islands_tpu_torch.core.config import DistanceMetric, LeannConfig
+from islands_tpu_torch.parallel import ArchipelagoSearcher, build_sharded, make_mesh
+from islands_tpu_torch.testing import host_merge
 from islands_tpu_torch.ops.pairwise import (
     pairwise_l2,
     pairwise_l2_reference,
@@ -538,3 +541,35 @@ def test_exact_distances_stay_full_f32_with_caller_tf32(metric):
     scale = max(float(exact.abs().max()), 1.0)
     assert float((got_d.double() - exact).abs().max()) <= 1e-5 * scale
     assert float((tf32.double() - dot64).abs().max()) > 1e-5 * float(dot64.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate,knobs", [
+    ("sketch", dict(expand_width=2, promote_width=16, max_iters=12, final_rescore=64)),
+    ("sketch", dict(expand_width=2, promote_width=48, max_iters=10)),
+    ("exact", dict())])
+def test_archipelago_on_the_card(gate, knobs):
+    """Two shards on one card: the fused hop-merge (kernel K1, launched)
+    equals the inline one, and the merged top-k equals a host merge of the
+    per-shard results."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; kernel K1 has no CPU mode")
+    rng = np.random.default_rng(5)
+    centers = rng.normal(size=(64, 32))
+    x = (centers[rng.integers(0, 64, 20000)] + 0.8 * rng.normal(size=(20000, 32)))
+    q = (centers[rng.integers(0, 64, 256)] + 0.8 * rng.normal(size=(256, 32)))
+    cfg = LeannConfig(metric=DistanceMetric.EUCLIDEAN, m=8, m0=16, ef_construction=48,
+                      wave_size=1024, reverse_slack=16, intra_wave_k=8, routing_size=2048)
+    idx = build_sharded(x.astype(np.float32), cfg, make_mesh(2, 1, devices=["cuda"]))
+    s = ArchipelagoSearcher(idx)
+    kw = dict(k=10, ef=32, gate=gate, **knobs)
+    before = hop_merge.launches
+    d, i = s.search(q, hop_merge="fused", **kw)
+    torch.cuda.synchronize()
+    assert (hop_merge.launches > before) == (gate == "sketch")
+    d_in, i_in = s.search(q, hop_merge="inline", **kw)
+    assert torch.equal(d, d_in) and torch.equal(i, i_in)
+    want_d, want_i = host_merge(*s.search_shards(q, hop_merge="fused", **kw), idx.gids,
+                                idx.counts, 10)
+    np.testing.assert_array_equal(i.cpu().numpy(), want_i)
+    np.testing.assert_array_equal(d.cpu().numpy(), want_d)
