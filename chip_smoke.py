@@ -86,8 +86,29 @@ Phases, each fatal on failure:
    same hits from a fresh service on the base path; a local git origin
    added (add_repository), committed to and synced (sync_repository
    re-indexes).
+12. the CLI (islands_tpu_torch.cli.main), on the card by default:
+   12a. `build --pq --pq-subquantizers 16 --metric euclidean` on the first
+   131,072 rows of phase 4's corpus (a depth cut for the time limit) and
+   `query` / `eval` with its 4,096 queries at the CLI's default knobs and at
+   config 4's first rung (--ef 128 --max-iters 16 --promote-width 16): K2
+   (at E = 240) is the only kernel launched; query's ids and distances equal
+   a direct load_index(...).search_two_level(...) with the same knobs, and
+   eval's recall is their recall against brute_force_topk (within 1e-4);
+   build s, vec/s, recall, QPS and K2's device ms per launch on the path.
+   12b. the repository commands over a minilm-l6 service, from a config file
+   the fallback YAML parser reads: add (a local git origin), sync after a
+   commit (of a tracked clone of it), workspace create/add-repo/list/delete,
+   list, status, search (JSON equal to IndexerService.search on the base
+   path), config show, ask with the mock LLM.
+   12c. `python -m islands_tpu_torch.cli --config <file> mcp` as a
+   subprocess over pipes: initialize, notifications/initialized, tools/list,
+   islands_search (the hits of 12b's search), islands_list, islands_status,
+   a malformed line and shutdown; it exits 0 and its stdout holds JSON-RPC
+   responses alone; ms per islands_search call.
+   12d. utils.tracing.span(block_on=...) around one K2 launch at 12a's shape
+   records at least its CUDA-event time, alone and behind 2 ms of device work.
 The kernels' launch counts are zeroed just before each path and read just
-after it; phases 8, 9 and 11 launch none of them.
+after it; phases 8, 9 and 11 launch none of them, phase 12 K2 alone.
 
 Prints a JSON line of path figures, one of kernel figures, the card's name
 and power limit, and last `{"ok": true, "device": {...}}`. Exits non-zero,
@@ -101,13 +122,18 @@ import argparse
 import concurrent.futures
 import contextlib
 import dataclasses
+import io
 import json
 import math
+import os
 import pathlib
+import queue
+import re
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import unittest.mock
 
@@ -116,8 +142,9 @@ import torch
 import torch.nn.functional as F
 
 import islands_tpu_torch
-from islands_tpu_torch import ops
+from islands_tpu_torch import cli, ops
 from islands_tpu_torch.benches import gather_bench
+from islands_tpu_torch.config import Config, _parse_simple_yaml
 from islands_tpu_torch.core.build import build_index_with_sketch
 from islands_tpu_torch.core.config import (
     DistanceMetric,
@@ -173,6 +200,7 @@ from islands_tpu_torch.parallel.sharded import (
     save_sharded,
 )
 from islands_tpu_torch.testing import graph_invariants, host_merge
+from islands_tpu_torch.utils.tracing import metrics, span
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, the
 # non-tensor-core float32 rate and the dense TF32 and bfloat16 tensor-core
@@ -311,6 +339,25 @@ SERVICE_QUERIES = [
     "chunk files with overlap", "routing entries from the sketch",
     "pairwise distance tiles on tensor cores", "refine pass re-selects rows",
     "row gather benchmark", "recompute embeddings during search"]
+# Phase 12, the CLI. 12a: `build --pq` (16 x 256, config 4's width) on the
+# first 131,072 rows of phase 4's 1M x 768 corpus (a depth cut for the time
+# limit: at 262,144 rows phase 12 took 99 s on an H100 80GB HBM3 at 700 W)
+# and its 4,096 queries, then `query` and `eval` at the CLI's default knobs
+# and at config 4's first rung where the CLI has the flag; each as (name,
+# flags, the same knobs as search_two_level's keywords). The CLI's build sets m0 = 2 * --m = 60 and
+# search keeps expand_width 4, so kernel K2 scores E = 240 neighbours a hop.
+# 12b-c: the repository commands and the MCP server over a minilm-l6
+# service; the queries are the service's first.
+CLI_N = 131072
+CLI_E = 240
+CLI_BUILD_FLAGS = ["--metric", "euclidean", "--pq", "--pq-subquantizers", "16"]
+CLI_KNOBS = [("defaults", [], dict(ef=64)),
+             ("config 4's first rung", ["--ef", "128", "--max-iters", "16",
+                                        "--promote-width", "16"],
+              dict(ef=128, max_iters=16, promote_width=16))]
+CLI_QUERIES = SERVICE_QUERIES[:4]
+MCP_TIMEOUT_S = 300
+SPAN_DELAY_CYCLES = 4_000_000  # about 2 ms of device time queued before the launch
 
 # The card's bfloat16 encode against the port's float32 forward on the CPU:
 # the smallest per-row cosine of the pooled rows, raw and after both sides
@@ -541,24 +588,29 @@ def check_adc(name, fn, plain, cases) -> float:
 
 
 def phase_adc(sms: int, clock_hz: float) -> tuple[dict, dict]:
-    """K2 and K3 against their plain versions at config 4's shapes and odd
-    ones, bit for bit; then their times beside bound, plain and library."""
+    """K2 and K3 against their plain versions at config 4's shapes, the CLI
+    path's (K2 at E = 240) and odd ones, bit for bit; then their times
+    beside bound, plain and library, K2's at both E."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     k2_cases = [(f"B={b} E={e} S={s} K={k}", adc_inputs(gen, b, s, k, (b, e)))
-                for b, e, s, k in [(4096, 120, 16, 256), (4096, 240, 16, 256), (24, 70, 8, 64)]]
+                for b, e, s, k in [(4096, 120, 16, 256), (4096, CLI_E, 16, 256),
+                                   (24, 70, 8, 64)]]
     k3_cases = [(f"B={b} N={n} S={s} K={k} {dt}", adc_inputs(gen, b, s, k, (n,), dt))
                 for b, n, s, k, dt in [(512, 1_000_000, 16, 256, torch.uint8),
                                        (3, 1000, 8, 32, torch.uint8),
                                        (5, 4099, 16, 512, torch.int32)]]
     k2_err = check_adc("gated_adc", gated_adc_sums, gated_adc_reference, k2_cases)
     k3_err = check_adc("adc_scan", adc_scan, adc_scan_reference, k3_cases)
-    del k2_cases[1:], k3_cases[1:]
+    del k2_cases[2:], k3_cases[1:]
 
     out = []
     for name, fn, plain, library, kernel, (desc, (tables, codes)), err, bound in [
             ("gated_adc", gated_adc_sums, gated_adc_reference, gated_adc_library,
              "gated_adc_kernel", k2_cases[0], k2_err,
              gated_adc_bound_ms(4096, 120, 16, 256)),
+            ("gated_adc", gated_adc_sums, gated_adc_reference, gated_adc_library,
+             "gated_adc_kernel", k2_cases[1], k2_err,
+             gated_adc_bound_ms(4096, CLI_E, 16, 256)),
             ("adc_scan", adc_scan, adc_scan_reference, adc_scan_library,
              "adc_scan_kernel", k3_cases[0], k3_err,
              adc_scan_bound_ms(512, 1_000_000, 16, 256, sms, clock_hz))]:
@@ -582,7 +634,12 @@ def phase_adc(sms: int, clock_hz: float) -> tuple[dict, dict]:
         out.append(dict(max_abs_err=err, ms=ms, event_ms=event_ms, plain_ms=plain_ms,
                         bound_ms=bound[0], bound_by=bound[1], library_ms=library_ms,
                         library="torch.nn.functional.embedding_bag(mode='sum')"))
-    return out[0], out[1]
+    # K2's row keeps config 4's E = 120 figures; the CLI path's E = 240 ones
+    # sit beside them with the suffix _cli.
+    k2 = dict(out[0], **{f"{key}_cli": out[1][key] for key in
+                         ("ms", "event_ms", "plain_ms", "bound_ms", "library_ms")},
+              e=120, e_cli=CLI_E)
+    return k2, out[2]
 
 
 # K3 "smallest" against its plain version, (B, N, S, K, code type, r,
@@ -1890,6 +1947,334 @@ def phase_service(root: pathlib.Path) -> dict:
     return out
 
 
+def run_cli(argv) -> str:
+    """islands_tpu_torch.cli.main(argv) in this process; its stdout. Fails
+    unless it exits 0."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"islands-tpu-torch {' '.join(argv)} exited {rc}")
+    return buf.getvalue()
+
+
+def phase_cli_engine(tmp: pathlib.Path) -> dict:
+    """12a: the CLI's build, query and eval at config 4's width, on the
+    card; then the same searches called directly, and the ground truth."""
+    x_all, queries = make_corpus(C4_N, C4_DIM, C4_QUERIES, seed=1)
+    x = x_all[:CLI_N].clone()
+    del x_all
+    xp, qp, idxp = str(tmp / "x.npy"), str(tmp / "q.npy"), str(tmp / "index.leann")
+    np.save(xp, x.cpu().numpy())
+    np.save(qp, queries.cpu().numpy())
+    torch.cuda.synchronize()
+
+    zero_launches()
+    t0 = time.perf_counter()
+    line = run_cli(["build", xp, "-o", idxp] + CLI_BUILD_FLAGS)
+    build_wall_s = time.perf_counter() - t0
+    m = re.search(r"built (\d+) vectors in ([\d.]+)s \((\d+) vec/s\)", line)
+    if m is None or int(m.group(1)) != CLI_N:
+        raise AssertionError(f"build printed {line!r}")
+    log(f"  build {CLI_N}x{C4_DIM} --pq 16x256: {line.strip()} (wall {build_wall_s:.3f} s "
+        f"with the load and save)")
+    runs = []
+    for name, flags, kw in CLI_KNOBS:
+        t0 = time.perf_counter()
+        got = json.loads(run_cli(["query", idxp, xp, qp] + flags))
+        query_wall_s = time.perf_counter() - t0
+        ev = json.loads(run_cli(["eval", idxp, xp, qp] + flags))
+        runs.append(dict(name=name, flags=flags, kw=kw, query=got, eval=ev,
+                         query_wall_s=query_wall_s))
+        log(f"  {name} {' '.join(flags)}: eval {json.dumps(ev)}; query command "
+            f"{query_wall_s:.3f} s wall")
+    launches = read_launches()
+    log(f"  kernel launches on the CLI's engine commands: {launches}")
+    if launches["gated_adc"] <= 0:
+        raise AssertionError("the CLI's query/eval never launched kernel K2")
+    if any(n for name, n in launches.items() if name != "gated_adc"):
+        raise AssertionError(f"the CLI's path launched kernels besides K2: {launches}")
+
+    # The same searches called directly, and the ground truth eval uses.
+    idx = load_index(idxp)
+    provider = InMemoryEmbeddingProvider(x)
+    _, true_ids = brute_force_topk(queries, x, 10, DistanceMetric.EUCLIDEAN, batch=65536)
+    out = dict(n=CLI_N, dim=C4_DIM, queries=C4_QUERIES, e=CLI_E,
+               build_printed=line.strip(), build_seconds=float(m.group(2)),
+               build_vectors_per_s=int(m.group(3)), build_wall_seconds=build_wall_s,
+               launches=launches, rungs=[])
+    for run in runs:
+        d, ids = idx.search_two_level(queries, k=10, provider=provider, **run["kw"])
+        got_ids = torch.tensor(run["query"]["ids"], dtype=torch.int32)
+        got_d = torch.tensor(run["query"]["distances"], dtype=torch.float32)
+        if not (torch.equal(got_ids, ids.cpu()) and torch.equal(got_d, d.cpu())):
+            raise AssertionError(f"{run['name']}: the CLI's query differs from "
+                                 "search_two_level with the same knobs")
+        err = check_results(f"cli {run['name']}", d, ids, x, queries, DistanceMetric.EUCLIDEAN)
+        rec = recall_at_10(ids, true_ids)
+        if abs(run["eval"]["recall"] - rec) > 1e-4:
+            raise AssertionError(f"{run['name']}: eval's recall {run['eval']['recall']} is not "
+                                 f"the recall of query's ids, {rec:.6f}")
+        out["rungs"].append(dict(name=run["name"], flags=run["flags"], recall=rec,
+                                 eval_recall=run["eval"]["recall"], qps=run["eval"]["qps"],
+                                 query_wall_seconds=run["query_wall_s"], max_abs_dist_err=err))
+        log(f"  {run['name']}: query == search_two_level (ids and distances), recall@10 "
+            f"{rec:.4f} == eval's {run['eval']['recall']}, QPS {run['eval']['qps']}")
+    # K2's device time per launch on this path (real codes at E = 240).
+    kw = CLI_KNOBS[-1][2]
+    events = _device_events(lambda: idx.search_two_level(queries, k=10, provider=provider,
+                                                         **kw), 1)
+    hits = [e for e in events if "gated_adc_kernel" in e.key]
+    count = sum(e.count for e in hits)
+    if count == 0:
+        raise AssertionError("the profiler saw no K2 launch in the CLI's search")
+    out["k2_ms_per_launch"] = sum(e.self_device_time_total for e in hits) / count / 1e3
+    out["k2_launches_per_search"] = count
+    log(f"  K2 on the path (B={C4_QUERIES}, E={CLI_E}, S=16, K=256): "
+        f"{out['k2_ms_per_launch']:.4f} ms per launch on the device, {count} launches in "
+        f"one search at {CLI_KNOBS[-1][0]}")
+    return out
+
+
+def phase_cli_repo(root: pathlib.Path, tmp: pathlib.Path) -> tuple[dict, pathlib.Path, dict]:
+    """12b: the repository commands over a minilm-l6 service on the card,
+    from a config file the fallback YAML parser reads. Returns the figures,
+    the config file and the search hits per query."""
+    base = tmp / "islands"
+    cfg_path = tmp / "islands.yaml"
+    text = (f"# phase 12b\nbase_path: {base}\nembedding_kind: encoder\n"
+            "embedding_model: minilm-l6\n")
+    cfg_path.write_text(text)
+    if _parse_simple_yaml(text) != {"base_path": str(base), "embedding_kind": "encoder",
+                                    "embedding_model": "minilm-l6"}:
+        raise AssertionError("the fallback YAML parser misreads the config file")
+    cfg = Config.from_file(cfg_path)
+    g = ["--config", str(cfg_path)]
+    origin = tmp / "origin"
+    shutil.copytree(root / "islands_tpu_torch" / "indexer", origin,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    _git(["init", "-b", "main"], origin)
+    _git(["add", "-A"], origin)
+    _git(["commit", "-m", "init"], origin)
+
+    zero_launches()
+    t0 = time.perf_counter()
+    line = run_cli(g + ["add", str(origin)])
+    add_s = time.perf_counter() - t0
+    if "indexed origin:" not in line:
+        raise AssertionError(f"add printed {line!r}")
+    # `add` clones only from a provider URL, so the tracked clone that `sync`
+    # follows is made here, from the local origin.
+    IndexerService(cfg.indexer_config()).add_repository("github:smoke/origin",
+                                                        clone_url=str(origin))
+    (origin / "extra_feature.py").write_text("def extra_feature():\n    return 'synced'\n")
+    _git(["add", "-A"], origin)
+    _git(["commit", "-m", "feature"], origin)
+    outs = {}
+    for key, argv in [
+            ("sync one", ["sync", "smoke_origin"]), ("sync all", ["sync"]),
+            ("ws create", ["workspace", "create", "ws", "--description", "smoke"]),
+            ("ws add-repo", ["workspace", "add-repo", "ws", "smoke/origin"]),
+            ("ws list", ["workspace", "list"]), ("ws delete", ["workspace", "delete", "ws"]),
+            ("list", ["list", "--format", "json"]), ("status", ["status", "--format", "json"]),
+            ("config", ["config", "show"])]:
+        outs[key] = run_cli(g + argv)
+    for key, want in [("sync one", "smoke_origin: re-indexed"),
+                      ("sync all", "synced all; 0 re-indexed"), ("ws list", "ws: 1 repos")]:
+        if want not in outs[key]:
+            raise AssertionError(f"{key} printed {outs[key]!r}")
+    names = sorted(i["name"] for i in json.loads(outs["list"]))
+    status = json.loads(outs["status"])
+    if names != ["origin", "smoke_origin"] or status["num_indexes"] != 2:
+        raise AssertionError(f"list/status disagree with the two indexes: {names}, {status}")
+    if outs["config"] != cfg.to_yaml() + "\n":
+        raise AssertionError("config show printed another config than the file's")
+    hits, search_s = {}, []
+    for q in CLI_QUERIES:
+        t0 = time.perf_counter()
+        hits[q] = json.loads(run_cli(g + ["search", q, "--format", "json"]))
+        search_s.append(time.perf_counter() - t0)
+    with unittest.mock.patch.dict(os.environ):
+        os.environ.pop("OPENAI_API_KEY", None)
+        answer = run_cli(g + ["ask", "how is a repository cloned and synced"])
+    if "(mock)" not in answer:
+        raise AssertionError(f"ask printed {answer!r}")
+    launches = read_launches()
+    svc = IndexerService(cfg.indexer_config())
+    for q in CLI_QUERIES:
+        want = json.loads(json.dumps(svc.search(q, top_k=10)))
+        if hits[q] != want or len(want) != 10:
+            raise AssertionError(f"search {q!r}: the CLI's JSON differs from "
+                                 "IndexerService.search on the same base path")
+    log(f"  add {add_s:.3f} s; sync re-indexed after a commit; workspace, list, status, "
+        f"config show and ask (mock LLM) as expected; {len(CLI_QUERIES)} search commands "
+        f"{1e3 * sum(search_s) / len(search_s):.1f} ms each (a fresh service each), JSON == "
+        f"IndexerService.search; kernel launches: {launches}")
+    return (dict(add_seconds=add_s, search_command_ms=[1e3 * t for t in search_s],
+                 indexes=names, chunks=status["total_chunks"], launches=launches),
+            cfg_path, hits)
+
+
+MCP_HIT = re.compile(r"^## (.+):(\d+) \(score (-?\d+\.\d+), index (.+)\)$")
+
+
+def phase_mcp(root: pathlib.Path, cfg_path: pathlib.Path, hits: dict) -> dict:
+    """12c: `python -m islands_tpu_torch.cli --config <file> mcp` as a
+    subprocess on the card over pipes: the protocol's requests, a malformed
+    line and shutdown; stdout holds JSON-RPC lines alone, and islands_search
+    returns 12b's hits."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("ISLANDS_") and k != "OPENAI_API_KEY"}
+    err_path = cfg_path.parent / "mcp.stderr"
+    lines: queue.Queue = queue.Queue()
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "islands_tpu_torch.cli", "--config", str(cfg_path), "mcp"],
+            cwd=root, env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err,
+            text=True, bufsize=1)
+    reader = threading.Thread(target=lambda: [lines.put(l) for l in proc.stdout] + [
+        lines.put(None)], daemon=True)
+    reader.start()
+
+    def request(obj_or_text, want_reply=True):
+        text = obj_or_text if isinstance(obj_or_text, str) else json.dumps(obj_or_text)
+        proc.stdin.write(text + "\n")
+        proc.stdin.flush()
+        if not want_reply:
+            return None
+        line = lines.get(timeout=MCP_TIMEOUT_S)
+        if line is None:
+            raise AssertionError(f"the MCP server closed stdout (see {err_path})")
+        resp = json.loads(line)  # a stray non-JSON line fails here
+        if resp.get("jsonrpc") != "2.0" or ("result" in resp) == ("error" in resp):
+            raise AssertionError(f"the MCP server wrote a line that is no JSON-RPC "
+                                 f"response: {line!r}")
+        return resp
+
+    def call(id, name, arguments=None):
+        return request({"jsonrpc": "2.0", "id": id, "method": "tools/call",
+                        "params": {"name": name, "arguments": arguments or {}}})
+
+    def searched(resp):
+        text = resp["result"]["content"][0]["text"]
+        return [MCP_HIT.match(l).groups() for l in text.splitlines() if l.startswith("## ")]
+
+    try:
+        t0 = time.perf_counter()
+        init = request({"jsonrpc": "2.0", "id": 1, "method": "initialize",
+                        "params": {"protocolVersion": "2024-11-05"}})
+        start_s = time.perf_counter() - t0
+        if init.get("id") != 1 or init["result"]["protocolVersion"] != "2024-11-05":
+            raise AssertionError(f"initialize answered {init}")
+        request({"jsonrpc": "2.0", "method": "notifications/initialized"}, want_reply=False)
+        tools = request({"jsonrpc": "2.0", "id": 2, "method": "tools/list"})
+        if tools.get("id") != 2 or len(tools["result"]["tools"]) != 6:
+            raise AssertionError(f"tools/list answered {tools}")
+        call_ms, first_ms = [], None
+        for rep in range(2):  # the first pass loads the encoder and the indexes
+            for i, q in enumerate(CLI_QUERIES):
+                t0 = time.perf_counter()
+                resp = call(100 * (rep + 1) + i, "islands_search", {"query": q, "top_k": 10})
+                ms = (time.perf_counter() - t0) * 1e3
+                if rep == 0 and i == 0:
+                    first_ms = ms
+                elif rep == 1:
+                    call_ms.append(ms)
+                want = [(h["path"], str(h["start_line"]), f"{h['score']:.3f}", h["index"])
+                        for h in hits[q]]
+                if resp["result"].get("isError") or searched(resp) != want:
+                    raise AssertionError(f"islands_search {q!r} answered other hits than "
+                                         "the CLI's search")
+        listed = call(300, "islands_list")
+        status = json.loads(call(301, "islands_status")["result"]["content"][0]["text"])
+        bad = request("{not json")
+        if ("origin" not in listed["result"]["content"][0]["text"]
+                or status["num_indexes"] != 2 or bad["error"]["code"] != -32700
+                or bad["id"] is not None):
+            raise AssertionError(f"islands_list/status or the parse error answered wrong: "
+                                 f"{listed}, {status}, {bad}")
+        down = request({"jsonrpc": "2.0", "id": 999, "method": "shutdown"})
+        if down != {"jsonrpc": "2.0", "id": 999, "result": None}:
+            raise AssertionError(f"shutdown answered {down}")
+        rc = proc.wait(timeout=60)
+        rest = []
+        while (line := lines.get(timeout=60)) is not None:
+            rest.append(line)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0 or rest:
+        raise AssertionError(f"the MCP server exited {rc} with {len(rest)} stray stdout "
+                             f"lines (see {err_path})")
+    out = dict(start_to_initialize_ms=start_s * 1e3, first_search_ms=first_ms,
+               search_call_ms=call_ms,
+               search_call_ms_mean=sum(call_ms) / len(call_ms), exit_code=rc)
+    log(f"  MCP subprocess: initialize answered after {start_s * 1e3:.1f} ms; "
+        f"tools/call islands_search {out['search_call_ms_mean']:.1f} ms per call warm "
+        f"({first_ms:.1f} ms for the first, which loads the encoder and indexes), hits == "
+        "the CLI's; list, status, a parse error and shutdown as expected; exit 0, "
+        "stdout JSON-RPC only")
+    return out
+
+
+def phase_span() -> dict:
+    """12d: a span with block_on around one K2 launch at the CLI path's
+    shape records at least the launch's device time by CUDA events, alone
+    and with about 2 ms of device work queued before it."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    tables, codes = adc_inputs(gen, C4_QUERIES, 16, 256, (C4_QUERIES, CLI_E))
+    gated_adc_sums(tables, codes)
+    out = {}
+    for name, delay in (("alone", 0), ("after a delay", SPAN_DELAY_CYCLES)):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        key = f"chip_smoke.k2 {name}"
+        result = []
+        with span(key, block_on=result):
+            start.record()
+            if delay:
+                torch.cuda._sleep(delay)
+            result.append(gated_adc_sums(tables, codes))
+            stop.record()
+        torch.cuda.synchronize()
+        event_ms = start.elapsed_time(stop)
+        span_ms = metrics.snapshot()["timings"][key]["total_s"] * 1e3
+        if span_ms < event_ms:
+            raise AssertionError(f"span {name}: {span_ms:.4f} ms < the device's "
+                                 f"{event_ms:.4f} ms: it did not wait for the card")
+        out[name] = dict(span_ms=span_ms, event_ms=event_ms)
+        log(f"  span over one K2 launch {name}: {span_ms:.4f} ms >= {event_ms:.4f} ms by "
+            "CUDA events")
+    return out
+
+
+def phase_cli(root: pathlib.Path) -> dict:
+    """Phase 12: 12a-d in a hidden temporary directory under build/, with
+    no ISLANDS_* or OPENAI_API_KEY variable from the caller's environment."""
+    scratch = root / "build"
+    scratch.mkdir(exist_ok=True)
+    with unittest.mock.patch.dict(os.environ), \
+            tempfile.TemporaryDirectory(dir=scratch, prefix=".cli-") as tmp:
+        for k in [k for k in os.environ if k.startswith("ISLANDS_") or k == "OPENAI_API_KEY"]:
+            del os.environ[k]
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        engine = phase_cli_engine(tmp)
+        torch.cuda.empty_cache()
+        log(f"  12a: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        repo, cfg_path, hits = phase_cli_repo(root, tmp)
+        log(f"  12b: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        mcp = phase_mcp(root, cfg_path, hits)
+        log(f"  12c: {time.perf_counter() - t0:.1f} s")
+        traced = phase_span()
+    launches = {k: engine["launches"][k] + repo["launches"][k] for k in engine["launches"]}
+    return dict(engine=engine, repository=repo, mcp=mcp, span=traced, launches=launches)
+
+
 def build_kernels() -> None:
     """nvcc every source at once (one process each) and log what ptxas says
     of its kernels' registers and shared memory."""
@@ -2008,12 +2393,17 @@ def main() -> int:
     log("phase 11: the indexer service on the card, minilm-l6 over the checkout")
     service = phase_service(here)
     log(f"  phase 11: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    log(f"phase 12: the CLI at config 4's width ({CLI_N}x{C4_DIM}, PQ 16x256), its "
+        "repository commands, the MCP server and a span")
+    cli_path = phase_cli(here)
+    log(f"  phase 12: {time.perf_counter() - t_phase:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     paths = {"config2": config2, "config4": config4, "ops_api": ops_api,
              "gather_bench": bench, "lifecycle": lifecycle, "hnsw": hnsw,
              "config3": config3, "config1": config1, "config5": config5, "refine": refine,
-             "service": service}
+             "service": service, "cli": cli_path}
     kernels = []
     for name, fig in (("hop_merge", k1), ("gated_adc", k2), ("adc_scan", k3),
                       ("adc_scan_smallest", k3s), ("pairwise_l2", k4a), ("pairwise_neg_dot", k4b), ("row_gather", k5)):

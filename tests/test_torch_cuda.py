@@ -573,3 +573,62 @@ def test_archipelago_on_the_card(gate, knobs):
                                 idx.counts, 10)
     np.testing.assert_array_equal(i.cpu().numpy(), want_i)
     np.testing.assert_array_equal(d.cpu().numpy(), want_d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", [[], ["--ef", "128", "--max-iters", "16",
+                                        "--promote-width", "16"]])
+def test_cli_query_on_the_card(knobs, tmp_path, capsys):
+    """The CLI's build --pq and query on the card (its default device): the
+    query launches K2 at the CLI path's E = 240 (--m 30 gives max_degree
+    60, times expand_width 4) and returns the ids and distances of
+    search_two_level with the same knobs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; kernel K2 has no CPU mode")
+    import json
+
+    from islands_tpu_torch import cli
+    from islands_tpu_torch.core.embedding import InMemoryEmbeddingProvider
+    from islands_tpu_torch.core.storage import load_index
+
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((4096, 64)).astype(np.float32)
+    q = rng.standard_normal((128, 64)).astype(np.float32)
+    xp, qp, out = (str(tmp_path / n) for n in ("x.npy", "q.npy", "i.leann"))
+    np.save(xp, x)
+    np.save(qp, q)
+    assert cli.main(["build", xp, "-o", out, "--metric", "euclidean", "--pq",
+                     "--pq-subquantizers", "16"]) == 0
+    capsys.readouterr()
+    before = gated_adc_sums.launches
+    assert cli.main(["query", out, xp, qp] + knobs) == 0
+    got = json.loads(capsys.readouterr().out)
+    assert gated_adc_sums.launches > before
+    idx = load_index(out)
+    assert idx.graph.max_degree * idx.config.expand_width == 240
+    kw = dict(zip(("ef", "max_iters", "promote_width"), map(int, knobs[1::2])))
+    d, i = idx.search_two_level(q, k=10, provider=InMemoryEmbeddingProvider(x), **kw)
+    assert got["ids"] == i.cpu().numpy().tolist()
+    assert got["distances"] == d.cpu().numpy().tolist()
+
+
+@pytest.mark.cuda
+def test_span_waits_for_the_device():
+    """span(block_on=...) over a launch queued behind ~2 ms of device work
+    records at least the device time between events around it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from islands_tpu_torch.utils.tracing import metrics, span
+
+    tables, codes = _adc_inputs(np.random.default_rng(12), 4096, 16, 256, (4096, 240))
+    gated_adc_sums(tables, codes)
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    out = []
+    with span("test.k2", block_on={"out": out}):
+        start.record()
+        torch.cuda._sleep(4_000_000)
+        out.append(gated_adc_sums(tables, codes))
+        stop.record()
+    torch.cuda.synchronize()
+    assert metrics.snapshot()["timings"]["test.k2"]["total_s"] * 1e3 >= start.elapsed_time(stop)
