@@ -107,8 +107,23 @@ Phases, each fatal on failure:
    responses alone; ms per islands_search call.
    12d. utils.tracing.span(block_on=...) around one K2 launch at 12a's shape
    records at least its CUDA-event time, alone and behind 2 ms of device work.
+13. ModernBERT (modernbert-base at its published width, random-init, bf16):
+   13a. the encoder bench (islands_tpu_torch.benches.encoder_bench.main, both
+   modes: minilm-l6 and bge-base, then modernbert-base, at seq 256): tokens/s,
+   texts/s, share of the bf16 peak by the reference bench's FLOP counts; the
+   card's encode against the CPU's float32 forward on 16 rows at seq 256 with
+   padded rows (phase 8's cosine bounds); one encode at the recompute
+   provider's chunk: its attention kernels and the memory it adds.
+   13b. config 1 as in phase 9 with modernbert-base in place of bge-base, on
+   32 queries (a depth cut) and one timed pass: recall@10 (>= 0.90), QPS,
+   recompute fraction, encodes/s, peak device memory.
+   13c. the service from Config(embedding_kind="encoder",
+   embedding_model="modernbert-base").indexer_config() over
+   islands_tpu_torch/core, stored and recompute: 16 text queries, the same
+   hits from a fresh service; index s, ms per query.
 The kernels' launch counts are zeroed just before each path and read just
-after it; phases 8, 9 and 11 launch none of them, phase 12 K2 alone.
+after it; phases 8, 9, 11 and 13 launch none of them (phase 13 fails if
+one does), phase 12 K2 alone.
 
 Prints a JSON line of path figures, one of kernel figures, the card's name
 and power limit, and last `{"ok": true, "device": {...}}`. Exits non-zero,
@@ -143,7 +158,7 @@ import torch.nn.functional as F
 
 import islands_tpu_torch
 from islands_tpu_torch import cli, ops
-from islands_tpu_torch.benches import gather_bench
+from islands_tpu_torch.benches import encoder_bench, gather_bench
 from islands_tpu_torch.config import Config, _parse_simple_yaml
 from islands_tpu_torch.core.build import build_index_with_sketch
 from islands_tpu_torch.core.config import (
@@ -165,7 +180,7 @@ from islands_tpu_torch.indexer.files import chunk_files, collect_files
 from islands_tpu_torch.indexer.native import collect_chunks_native
 from islands_tpu_torch.indexer.service import EmbeddingConfig, IndexerConfig, IndexerService
 from islands_tpu_torch.models import bert as bert_mod
-from islands_tpu_torch.models.encoder import TextEncoder
+from islands_tpu_torch.models.encoder import ModelArchitecture, TextEncoder, architecture_module
 from islands_tpu_torch.models.provider import EMBED_CHUNK_BATCHES, EncoderEmbeddingProvider
 from islands_tpu_torch.ops import _cuda, merge
 from islands_tpu_torch.ops import proj as proj_ops
@@ -358,6 +373,24 @@ CLI_KNOBS = [("defaults", [], dict(ef=64)),
 CLI_QUERIES = SERVICE_QUERIES[:4]
 MCP_TIMEOUT_S = 300
 SPAN_DELAY_CYCLES = 4_000_000  # about 2 ms of device time queued before the launch
+
+# Phase 13, ModernBERT at modernbert-base's published width (22 layers,
+# hidden 768, 12 heads, GeGLU intermediate 1152, a window of 128 with every
+# third layer global, RoPE theta 160,000 global / 10,000 local), random-init
+# from seed 0. 13a: the encoder bench's two modes; the card's encode against
+# the CPU's float32 forward on MB_CHECK_ROWS rows at seq 256 drawn as the bench
+# draws them, every other row padded; one encode at the recompute provider's
+# chunk (4,096 rows at config 1's 128 tokens): its attention kernels and the
+# memory it adds. 13b: config 1 with modernbert-base in place of bge-base, its
+# queries cut from 128 to 32 and one timed pass, and no CPU check (13a's
+# holds the encoder): depth cuts for the time limit (at 64 queries phase 13
+# took 154.7 s on an H100 80GB HBM3 at 700 W, 13b 73.7 s of it). 13c: the
+# service configured by Config(embedding_model="modernbert-base") over one
+# package directory of the checkout (a depth cut), stored and recompute.
+MB_PRESET = "modernbert-base"
+MB_CHECK_ROWS, MB_CHECK_SEQ = 16, 256
+MB_C1_QUERIES, MB_C1_PASSES = 32, 1
+MB_SERVICE_DIR = "islands_tpu_torch/core"
 
 # The card's bfloat16 encode against the port's float32 forward on the CPU:
 # the smallest per-row cosine of the pooled rows, raw and after both sides
@@ -1529,7 +1562,7 @@ def encoder_card_vs_cpu(enc: TextEncoder, ids, mask, what: str) -> dict:
     """The card's bfloat16 pooled rows against the port's own float32
     forward on the CPU, from the same seeded weights."""
     cfg = dataclasses.replace(enc.model_config, dtype="float32")
-    cpu = TextEncoder(bert_mod.init_params(cfg, 0), cfg, device="cpu")
+    cpu = TextEncoder(architecture_module(cfg).init_params(cfg, 0), cfg, device="cpu")
     got = bert_mod.encode(enc.model, ids.cuda(), mask.cuda()).cpu().double()
     want = bert_mod.encode(cpu.model, ids, mask).double()
     mu = want.mean(dim=0)
@@ -1627,10 +1660,13 @@ def phase_config3() -> dict:
                 launches=launches)
 
 
-def phase_config1(root: pathlib.Path) -> dict:
+def phase_config1(root: pathlib.Path, preset: str = "bge-base", queries: int = C1_QUERIES,
+                  passes: int = C1_QPS_PASSES, check_rows: int | None = 64) -> dict:
     """BASELINE config 1: the checkout's own source, chunked by the native
     loader and by the Python chunker (which must agree), indexed with the
-    bge-base encoder on the card and searched with recompute."""
+    `preset` encoder on the card and searched with recompute; the card's
+    encode of the first `check_rows` token rows against the CPU's (None:
+    no check)."""
     t0 = time.perf_counter()
     chunks = chunk_files(collect_files(root, C1_EXTS), 512, 64)
     py_s = time.perf_counter() - t0
@@ -1649,30 +1685,32 @@ def phase_config1(root: pathlib.Path) -> dict:
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
     t0 = time.perf_counter()
-    enc = TextEncoder.from_preset("bge-base", seed=0)
+    enc = TextEncoder.from_preset(preset, seed=0)
     provider = EncoderEmbeddingProvider.from_texts(enc, [c.text for c in chunks],
                                                    pad_to=C1_PAD).with_center()
     idx = LeannIndex(C1_CONFIG).build(provider)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     bpv = idx.storage_bytes() / n
-    log(f"  build {n} chunks x {C1_PAD} tokens, bge-base bf16 (tokenize, centre, embeddings, "
+    log(f"  build {n} chunks x {C1_PAD} tokens, {preset} bf16 (tokenize, centre, embeddings, "
         f"graph): {build_s:.3f} s; index bytes/vector {bpv:.2f}")
     emb = materialize_embeddings(provider, n)
-    qn = min(C1_QUERIES, n)
+    qn = min(queries, n)
     q = emb[:qn].clone()
     _, true_ids = brute_force_topk(q, emb, 10, C1_CONFIG.metric)
     rung = recompute_rung(f"ef{C1_EF}/gate auto", idx, q, true_ids, provider, C1_BATCH,
-                          C1_QPS_PASSES, ef=C1_EF, gate="auto")
+                          passes, ef=C1_EF, gate="auto")
     launches = read_launches()
-    check = encoder_card_vs_cpu(enc, provider.token_ids[:64].cpu(),
-                                provider.token_mask[:64].cpu(), "bge-base")
+    check = (encoder_card_vs_cpu(enc, provider.token_ids[:check_rows].cpu(),
+                                 provider.token_mask[:check_rows].cpu(), preset)
+             if check_rows else None)
     if rung["recall"] < C1_MIN_RECALL:
-        raise AssertionError(f"config 1: recall@10 {rung['recall']:.4f} < {C1_MIN_RECALL}")
+        raise AssertionError(f"config 1 ({preset}): recall@10 {rung['recall']:.4f} < "
+                             f"{C1_MIN_RECALL}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"  kernel launches on the config-1 path: {launches}; peak device memory "
+    log(f"  kernel launches on the config-1 path ({preset}): {launches}; peak device memory "
         f"{peak_gb:.2f} GB")
-    return dict(n_chunks=n, native_equals_python=True, encoder="bge-base", seq_len=C1_PAD,
+    return dict(n_chunks=n, native_equals_python=True, encoder=preset, seq_len=C1_PAD,
                 build_seconds=build_s, index_bytes_per_vector=bpv, rung=rung,
                 encoder_check=check, peak_device_gb=peak_gb, launches=launches)
 
@@ -1879,6 +1917,32 @@ def _git(args, cwd) -> None:
                         "PATH": "/usr/bin:/bin:/usr/local/bin", "HOME": str(cwd)})
 
 
+def service_round(cfg: IndexerConfig, src: pathlib.Path, name: str, mode: str) -> dict:
+    """A service on `cfg` indexes `src` and answers SERVICE_QUERIES at top
+    10 (finite hits); a fresh service on the base path must answer the
+    same."""
+    svc = IndexerService(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    info = svc.index_local_path(src, name)
+    torch.cuda.synchronize()
+    index_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hits = [svc.search(q, top_k=10) for q in SERVICE_QUERIES]
+    query_ms = (time.perf_counter() - t0) * 1e3 / len(SERVICE_QUERIES)
+    if not all(len(h) == 10 and all(math.isfinite(r["score"]) for r in h) for h in hits):
+        raise AssertionError(f"service ({mode}): a query did not return 10 finite hits")
+    fresh = IndexerService(cfg)
+    if [fresh.search(q, top_k=10) for q in SERVICE_QUERIES] != hits:
+        raise AssertionError(f"service ({mode}): a fresh service answers differently")
+    log(f"  {mode}: indexed {info.num_files} files, {info.num_chunks} chunks in "
+        f"{index_s:.3f} s; {query_ms:.1f} ms per query (16 queries, top 10); "
+        f"index.leann {info.size_bytes / info.num_chunks:.2f} B/chunk; a fresh "
+        "service on the base path returns identical hits")
+    return dict(chunks=info.num_chunks, files=info.num_files, index_seconds=index_s,
+                query_ms=query_ms, size_bytes=info.size_bytes)
+
+
 def phase_service(root: pathlib.Path) -> dict:
     """IndexerService with minilm-l6 on the card over the checkout, stored
     and recompute: index, 16 queries, the same answers from a fresh service
@@ -1894,27 +1958,7 @@ def phase_service(root: pathlib.Path) -> dict:
         for mode in ("stored", "recompute"):
             cfg = IndexerConfig(base_path=str(pathlib.Path(tmp) / mode), embedding=EmbeddingConfig(
                 kind="encoder", model="minilm-l6", recompute=mode == "recompute"))
-            svc = IndexerService(cfg)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            info = svc.index_local_path(root, "checkout")
-            torch.cuda.synchronize()
-            index_s = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            hits = [svc.search(q, top_k=10) for q in SERVICE_QUERIES]
-            query_ms = (time.perf_counter() - t0) * 1e3 / len(SERVICE_QUERIES)
-            if not all(len(h) == 10 and all(math.isfinite(r["score"]) for r in h)
-                       for h in hits):
-                raise AssertionError(f"service ({mode}): a query did not return 10 finite hits")
-            fresh = IndexerService(cfg)
-            if [fresh.search(q, top_k=10) for q in SERVICE_QUERIES] != hits:
-                raise AssertionError(f"service ({mode}): a fresh service answers differently")
-            out[mode] = dict(chunks=info.num_chunks, files=info.num_files, index_seconds=index_s,
-                             query_ms=query_ms, size_bytes=info.size_bytes)
-            log(f"  {mode}: indexed {info.num_files} files, {info.num_chunks} chunks in "
-                f"{index_s:.3f} s; {query_ms:.1f} ms per query (16 queries, top 10); "
-                f"index.leann {info.size_bytes / info.num_chunks:.2f} B/chunk; a fresh "
-                "service on the base path returns identical hits")
+            out[mode] = service_round(cfg, root, "checkout", mode)
         origin = pathlib.Path(tmp) / "origin"
         shutil.copytree(root / "islands_tpu_torch" / "indexer", origin,
                         ignore=shutil.ignore_patterns("__pycache__"))
@@ -2275,6 +2319,122 @@ def phase_cli(root: pathlib.Path) -> dict:
     return dict(engine=engine, repository=repo, mcp=mcp, span=traced, launches=launches)
 
 
+def modernbert_check_tokens(vocab: int):
+    """MB_CHECK_ROWS rows of MB_CHECK_SEQ ids drawn as the encoder bench
+    draws them; every other row is padded to a length in [seq / 2, seq)."""
+    rows, slen = MB_CHECK_ROWS, MB_CHECK_SEQ
+    rng = np.random.default_rng(13)
+    ids = rng.integers(1, vocab, size=(rows, slen))
+    lens = np.where(np.arange(rows) % 2 == 0, slen, rng.integers(slen // 2, slen, rows))
+    mask = (np.arange(slen)[None, :] < lens[:, None]).astype(np.int32)
+    return torch.from_numpy((ids * mask).astype(np.int32)), torch.from_numpy(mask)
+
+
+def provider_chunk_probe(enc: TextEncoder, slen: int) -> dict:
+    """One encode at the recompute provider's chunk (batch size x
+    EMBED_CHUNK_BATCHES rows of `slen` tokens): the device memory it adds at
+    its peak, its attention kernels (which backend
+    scaled_dot_product_attention took) and its largest kernels."""
+    rows = enc.config.batch_size * EMBED_CHUNK_BATCHES
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ids = torch.randint(1, enc.model_config.vocab_size, (rows, slen), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    mask = torch.ones_like(ids)
+    mask[1::2, slen // 2:] = 0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bert_mod.encode(enc.model, ids, mask)
+    torch.cuda.synchronize()
+    added_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    events = sorted(_device_events(lambda: bert_mod.encode(enc.model, ids, mask), 1),
+                    key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    attention = [dict(kernel=e.key[:120], ms=e.self_device_time_total / 1e3, count=e.count)
+                 for e in events if re.search(r"attention|fmha|flash|cudnn|softmax", e.key, re.I)]
+    top = [dict(kernel=e.key[:90], ms=e.self_device_time_total / 1e3, count=e.count)
+           for e in events[:8]]
+    log(f"  one encode at the provider's chunk, {rows} x {slen} tokens (every other row "
+        f"half padding): adds {added_gb:.3f} GB at its peak; device {busy_ms:.3f} ms")
+    for r in attention:
+        log(f"    attention: {r['ms']:9.3f} ms  x{r['count']:<4d} {r['kernel']}")
+    for r in top:
+        log(f"    {r['ms']:9.3f} ms  x{r['count']:<5d} {r['kernel']}")
+    if not attention:
+        raise AssertionError("the profiler saw no attention kernel in the encode")
+    return dict(rows=rows, seq_len=slen, added_peak_gb=added_gb, device_ms=busy_ms,
+                attention=attention, top=top)
+
+
+def phase_modernbert_encoder() -> dict:
+    """13a: the encoder bench in both modes; modernbert-base on the card
+    against the CPU's float32 forward; the provider's chunk."""
+    zero_launches()
+    bench = {mode: encoder_bench.main(mode) for mode in ("default", "modernbert")}
+    for row in bench["default"]["rows"] + bench["modernbert"]["rows"]:
+        if not (row["tokens_per_s"] > 0 and math.isfinite(row["mfu"])):
+            raise AssertionError(f"encoder bench: a bad row {row}")
+        log(f"  bench {row['model']} b={row['batch']} seq {row['seq']}: "
+            f"{row['tokens_per_s']:.1f} tokens/s, {row['texts_per_s']:.2f} texts/s, "
+            f"{row['ms_per_batch']:.3f} ms a batch, {100 * row['mfu']:.2f}% of "
+            f"{encoder_bench.PEAK_BF16 / 1e12:.0f} TFLOP/s")
+    enc = TextEncoder.from_preset(MB_PRESET, seed=0)
+    cfg = enc.model_config
+    kinds = ["global" if layer.is_global else "local" for layer in enc.model.layers]
+    if (enc.architecture is not ModelArchitecture.MODERNBERT or cfg.hidden_size != 768
+            or len(kinds) != 22 or cfg.local_attention != 128 or cfg.intermediate_size != 1152):
+        raise AssertionError(f"{MB_PRESET}: not the published width: {cfg}")
+    log(f"  {MB_PRESET}: {len(kinds)} layers ({kinds.count('global')} global, "
+        f"{kinds.count('local')} local, window {cfg.local_attention}), hidden "
+        f"{cfg.hidden_size}, {cfg.num_attention_heads} heads, GeGLU {cfg.intermediate_size}, "
+        f"RoPE theta {cfg.global_rope_theta:.0f} / {cfg.local_rope_theta:.0f}, "
+        f"{enc.model.dtype}")
+    ids, mask = modernbert_check_tokens(cfg.vocab_size)
+    check = encoder_card_vs_cpu(enc, ids, mask, f"{MB_PRESET} at seq {MB_CHECK_SEQ}")
+    probe = provider_chunk_probe(enc, C1_PAD)
+    launches = read_launches()
+    log(f"  kernel launches on the encoder path: {launches}")
+    return dict(bench=bench, layers=kinds, encoder_check=check, provider_chunk=probe,
+                launches=launches)
+
+
+def phase_modernbert_service(root: pathlib.Path) -> dict:
+    """13c: the service that Config(embedding_model="modernbert-base")
+    configures, stored and recompute, over MB_SERVICE_DIR."""
+    zero_launches()
+    out = {}
+    scratch = root / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch, prefix=".service-mb-") as tmp:
+        for mode in ("stored", "recompute"):
+            cfg = Config(base_path=str(pathlib.Path(tmp) / mode), embedding_kind="encoder",
+                         embedding_model=MB_PRESET,
+                         embedding_recompute=mode == "recompute").indexer_config()
+            out[mode] = service_round(cfg, root / MB_SERVICE_DIR, "core", mode)
+    out["launches"] = read_launches()
+    log(f"  kernel launches on the service path: {out['launches']}")
+    return out
+
+
+def phase_modernbert(root: pathlib.Path) -> dict:
+    """Phase 13: ModernBERT on the card through the bench, config 1 and the
+    service; none of the three launches a kernel of the port."""
+    out = {}
+    for label, part, run in (
+            ("13a", "encoder", phase_modernbert_encoder),
+            ("13b", "config1", lambda: phase_config1(root, MB_PRESET, MB_C1_QUERIES,
+                                                     MB_C1_PASSES, check_rows=None)),
+            ("13c", "service", lambda: phase_modernbert_service(root))):
+        t0 = time.perf_counter()
+        log(f"  {label}: {part}")
+        out[part] = run()
+        torch.cuda.empty_cache()
+        if any(out[part]["launches"].values()):
+            raise AssertionError(f"phase {label}: a kernel launched: {out[part]['launches']}")
+        log(f"  {label}: {time.perf_counter() - t0:.1f} s, no kernel launched")
+    return out
+
+
 def build_kernels() -> None:
     """nvcc every source at once (one process each) and log what ptxas says
     of its kernels' registers and shared memory."""
@@ -2398,12 +2558,18 @@ def main() -> int:
         "repository commands, the MCP server and a span")
     cli_path = phase_cli(here)
     log(f"  phase 12: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    log(f"phase 13: ModernBERT ({MB_PRESET}, full width): the encoder bench, config 1, "
+        "the service")
+    modernbert = phase_modernbert(here)
+    log(f"  phase 13: {time.perf_counter() - t_phase:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     paths = {"config2": config2, "config4": config4, "ops_api": ops_api,
              "gather_bench": bench, "lifecycle": lifecycle, "hnsw": hnsw,
              "config3": config3, "config1": config1, "config5": config5, "refine": refine,
-             "service": service, "cli": cli_path}
+             "service": service, "cli": cli_path,
+             **{f"modernbert_{part}": out for part, out in modernbert.items()}}
     kernels = []
     for name, fig in (("hop_merge", k1), ("gated_adc", k2), ("adc_scan", k3),
                       ("adc_scan_smallest", k3s), ("pairwise_l2", k4a), ("pairwise_neg_dot", k4b), ("row_gather", k5)):

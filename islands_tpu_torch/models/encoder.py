@@ -141,6 +141,12 @@ def _is_modernbert(model_config) -> bool:
     return isinstance(model_config, modernbert_mod.ModernBertConfig)
 
 
+def architecture_module(model_config):
+    """models/modernbert.py for a ModernBertConfig, else models/bert.py: the
+    module whose `init_params` draws the architecture's weights."""
+    return modernbert_mod if _is_modernbert(model_config) else bert_mod
+
+
 def build_model(params: dict, model_config, device=None) -> torch.nn.Module:
     """The architecture's module for reference-layout parameters."""
     if _is_modernbert(model_config):
@@ -183,8 +189,8 @@ class TextEncoder:
             raise ValueError(f"unknown preset {name!r}; have {sorted(PRESETS)}")
         factory, _ = PRESETS[name]
         mc = factory()
-        mod = modernbert_mod if _is_modernbert(mc) else bert_mod
-        return TextEncoder(mod.init_params(mc, seed), mc, config=config, device=device)
+        return TextEncoder(architecture_module(mc).init_params(mc, seed), mc, config=config,
+                           device=device)
 
     @staticmethod
     def from_pretrained(path: str | Path, config: EncoderConfig | None = None,

@@ -191,6 +191,12 @@ def test_guard_covers_the_archipelago_and_service_modules(module):
     assert module in _port_modules()
 
 
+def test_guard_covers_the_encoder_bench():
+    # The encoder bench is among the modules the guards below import and
+    # parse.
+    assert "islands_tpu_torch.benches.encoder_bench" in _port_modules()
+
+
 def test_mesh_defaults_to_cuda_and_never_falls_back():
     from islands_tpu_torch.parallel import make_mesh, make_multislice_mesh
 

@@ -7,9 +7,12 @@ machine that has only the port's dependencies:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from islands_tpu_torch.ops.adc import (
     SMALLEST_MAX_R,
@@ -25,6 +28,10 @@ from islands_tpu_torch.ops.adc import (
 from islands_tpu_torch.ops.gather import row_gather, row_gather_reference
 from islands_tpu_torch.ops.hop_merge import HOLE, hop_merge, hop_merge_reference
 from islands_tpu_torch.core.config import DistanceMetric, LeannConfig
+from islands_tpu_torch.models import bert as bert_mod
+from islands_tpu_torch.models import modernbert as modernbert_mod
+from islands_tpu_torch.models.encoder import TextEncoder, build_model
+from islands_tpu_torch.models.provider import EncoderEmbeddingProvider
 from islands_tpu_torch.parallel import ArchipelagoSearcher, build_sharded, make_mesh
 from islands_tpu_torch.testing import host_merge
 from islands_tpu_torch.ops.pairwise import (
@@ -632,3 +639,39 @@ def test_span_waits_for_the_device():
         stop.record()
     torch.cuda.synchronize()
     assert metrics.snapshot()["timings"]["test.k2"]["total_s"] * 1e3 >= start.elapsed_time(stop)
+
+
+@pytest.mark.cuda
+def test_modernbert_base_on_the_card():
+    """modernbert-base at its published width (22 layers, hidden 768, a
+    window of 128): the card's bfloat16 pooled rows against the port's
+    float32 forward on the CPU from the same seeded weights, within
+    chip_smoke.py's cosine bounds (smallest raw cosine 0.999, smallest
+    cosine after both sides subtract the CPU rows' mean 0.99), at seq 256
+    with padded rows; and the recompute provider's rows for a set of ids
+    equal bert.encode of the same token rows on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = modernbert_mod.ModernBertConfig.modernbert_base()
+    params = modernbert_mod.init_params(cfg, 0)
+    enc = TextEncoder(params, cfg)
+    cpu = build_model(params, dataclasses.replace(cfg, dtype="float32"), "cpu")
+    rng = np.random.default_rng(21)
+    slen = 256
+    ids = rng.integers(1, cfg.vocab_size, size=(8, slen))
+    lens = np.array([slen, 200, slen, 131, 64, slen, 250, 129])
+    mask = (np.arange(slen)[None, :] < lens[:, None]).astype(np.int32)
+    ids, mask = torch.from_numpy((ids * mask).astype(np.int32)), torch.from_numpy(mask)
+    got = bert_mod.encode(enc.model, ids.cuda(), mask.cuda()).cpu().double()
+    want = bert_mod.encode(cpu, ids, mask).double()
+    mu = want.mean(dim=0)
+    assert float(F.cosine_similarity(got, want, dim=1).min()) >= 0.999
+    assert float(F.cosine_similarity(got - mu, want - mu, dim=1).min()) >= 0.99
+
+    prov = EncoderEmbeddingProvider(enc, ids, mask)
+    pick = torch.tensor([[3, 0, 5], [7, 3, 1]], device="cuda")
+    rows = prov.embed(pick)
+    flat = pick.reshape(-1)
+    direct = bert_mod.encode(enc.model, prov.token_ids[flat], prov.token_mask[flat])
+    assert rows.shape == (2, 3, cfg.hidden_size)
+    assert torch.equal(rows.reshape(-1, cfg.hidden_size), direct)

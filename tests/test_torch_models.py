@@ -331,3 +331,45 @@ def test_from_json_configs(tmp_path):
         dc.asdict(jbert.BertConfig.from_json(tmp_path / "config.json"))
     assert dc.asdict(tmb.ModernBertConfig.from_json(tmp_path / "config.json")) == \
         dc.asdict(jmb.ModernBertConfig.from_json(tmp_path / "config.json"))
+
+
+def _preset_window_config(**kw):
+    """modernbert-base's attention pattern (window 128, every third layer
+    global, RoPE theta 160,000 / 10,000) on a narrow model of 6 layers."""
+    base = jmb.ModernBertConfig.modernbert_base()
+    cfg = dc.replace(base, vocab_size=1024, hidden_size=64, num_hidden_layers=6,
+                     num_attention_heads=4, intermediate_size=96,
+                     max_position_embeddings=512, pad_token_id=0, dtype="float32")
+    return dc.replace(cfg, **kw)
+
+
+def test_modernbert_at_the_preset_window_f32():
+    """The port's forward and encode against modernbert_forward and encode
+    at seq 320, where the +/-64 band of the local layers cuts, with padded
+    rows; within atol 1e-5 in float32, as the other float32 cases. A window
+    wide enough to cover the sequence changes the output, so the band is
+    exercised."""
+    cfg = _preset_window_config()
+    assert (cfg.local_attention, cfg.global_attn_every_n_layers, cfg.global_rope_theta,
+            cfg.local_rope_theta) == (128, 3, 160000.0, 10000.0)
+    params = jmb.init_params(cfg, 0)
+    model = _port("modernbert", cfg)
+    rng = np.random.default_rng(17)
+    slen = 320
+    ids = rng.integers(1, cfg.vocab_size, size=(3, slen)).astype(np.int32)
+    mask = (np.arange(slen)[None, :] < np.array([[slen], [250], [90]])).astype(np.int32)
+    ids = ids * mask
+    want = np.asarray(jmb.modernbert_forward(params, jnp.asarray(ids), jnp.asarray(mask), cfg))
+    with torch.no_grad():
+        got = model(torch.from_numpy(ids), torch.from_numpy(mask)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    for normalize in (True, False):
+        want_e = np.asarray(jmb.encode(params, jnp.asarray(ids), jnp.asarray(mask), cfg,
+                                       normalize=normalize))
+        got_e = tmb.encode(model, torch.from_numpy(ids), torch.from_numpy(mask),
+                           normalize).numpy()
+        np.testing.assert_allclose(got_e, want_e, atol=1e-5, rtol=0)
+    wide = _port("modernbert", _preset_window_config(local_attention=2 * slen), params)
+    with torch.no_grad():
+        unbanded = wide(torch.from_numpy(ids), torch.from_numpy(mask)).numpy()
+    assert np.abs(unbanded[0] - got[0]).max() > 1e-3
