@@ -46,6 +46,7 @@ from islands_tpu_torch.device import resolve_device, to_device
 from islands_tpu_torch.ops import distance as dist_ops
 from islands_tpu_torch.ops import proj as proj_ops
 from islands_tpu_torch.ops.merge import smallest_k
+from islands_tpu_torch.utils.tracing import count, region, traced
 
 
 class IndexNotBuilt(RuntimeError):
@@ -210,6 +211,7 @@ class LeannIndex:
 
     # -- search ----------------------------------------------------------------
 
+    @traced("leann.search")
     def search(self, queries, k: int, provider: EmbeddingProvider, ef: int | None = None,
                expand_width: int | None = None, max_iters: int | None = None,
                gate: str = "auto", promote_width: int | None = None):
@@ -223,7 +225,11 @@ class LeannIndex:
         `last_recompute_fraction`; "auto" takes the sketch gate when the index
         has a sketch and `config.sketch_query` is set. `promote_width` and
         `max_iters` default to the config's `promote_width` and
-        `max_search_iters`, then to the gate's own formula."""
+        `max_search_iters`, then to the gate's own formula.
+
+        Traced (utils/tracing) as the root region "leann.search"; the sketch
+        gate counts "search.exact_rows", the rows it scored exactly (the sum
+        of its per-query counts, read with the recompute fraction)."""
         graph = self._require_graph()
         q, single = self._queries(queries)
         if self.is_empty:
@@ -255,6 +261,8 @@ class LeannIndex:
                 exact_scorer=scorer, metric=cfg.metric, dim=int(qp.shape[1]), ef=ef, k=k,
                 aq_width=max(ef, 64), promote_width=promote, expand_width=expand_width,
                 max_iters=max_iters)
+            n_exact = n_exact.cpu()  # the search's one read of its counts
+            count("search.exact_rows", int(n_exact.sum()))
             self.last_recompute_fraction = (float(n_exact.float().mean())
                                             / max(self.num_nodes, 1))
             return (dists[0], ids[0]) if single else (dists, ids)
@@ -319,8 +327,9 @@ class LeannIndex:
         qp = dist_ops.prep_query(q, cfg.metric)
         entries = graph.entry_point
         if routing_size is not None and routing_size > 0:
-            entries = route_entries_embed(q, provider.embed,
-                                          self._routing_sample(routing_size), cfg.metric)
+            with region("search.route"):
+                entries = route_entries_embed(q, provider.embed,
+                                              self._routing_sample(routing_size), cfg.metric)
         dists, ids, n_exact = batched_two_level_search(
             qp, provider.embed, self._inline_codes(), self.pq.codebook.centroids,
             graph.neighbors, entries,

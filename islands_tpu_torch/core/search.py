@@ -24,6 +24,13 @@ Exact scorers are `scorer(ctx, q [B, d], ids [B, E], valid [B, E]) ->
 [B, E]` (+inf where not valid), with the corpus or the embedding function
 in `ctx`: `make_stored_scorer(metric)` over stored prepped embeddings,
 `make_recompute_scorer(metric)` over a provider's `embed`.
+
+Tracing (utils/tracing, off by default): every pass of `_run_hops` is a
+region "search.hop" holding its "search.hop.sync" read and counting
+"search.hops" once per body run; the gated loops split routing
+("search.route"), a hop's steps ("search.hop.expand", "search.hop.merge",
+"search.hop.rescore") and the end ("search.final"); a StoredSearcher query
+is the root region "stored.search".
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from islands_tpu_torch.ops.merge import (
     pack_id_expanded,
     smallest_k,
 )
+from islands_tpu_torch.utils.tracing import count, region, traced
 
 _INF = float("inf")
 
@@ -91,16 +99,22 @@ def _run_hops(cond, body, state: tuple, max_iters: int, static_iters: bool):
     queries)."""
     if static_iters:
         for _ in range(max_iters):
-            state = body(state)
+            with region("search.hop"):
+                count("search.hops", 1)
+                state = body(state)
         return state
     for _ in range(max_iters):
-        active = cond(state)
-        if not bool(active.any()):
-            break
-        new = body(state)
-        state = tuple(
-            torch.where(active.view(-1, *([1] * (o.dim() - 1))), nw, o)
-            for nw, o in zip(new, state))
+        with region("search.hop"):
+            active = cond(state)
+            with region("search.hop.sync"):
+                go = bool(active.any())
+            if not go:
+                break
+            count("search.hops", 1)
+            new = body(state)
+            state = tuple(
+                torch.where(active.view(-1, *([1] * (o.dim() - 1))), nw, o)
+                for nw, o in zip(new, state))
     return state
 
 
@@ -390,13 +404,14 @@ def batched_sketch_gated_query(qp, qs, exact_ctx, scale, neighbors, nbr_sketch,
     # window would shrink the AQ slice below aq_width.
     promote_width = min(promote_width, expand_width * m)
 
-    entry = route_entries(qs, routing_ids, node_sketch, metric)
-    ones = torch.ones((b, 1), dtype=torch.bool, device=qp.device)
-    d_entry = exact_scorer(exact_ctx, qp, entry[:, None], ones)[:, 0]
-    pool_d, pool_code = _init_pool(entry, d_entry, ef)
-    aq_i = torch.full((b, aq_width), SENTINEL, dtype=torch.int32, device=qp.device)
-    aq_d = torch.full((b, aq_width), _INF, dtype=torch.float32, device=qp.device)
-    n_exact = torch.ones((b,), dtype=torch.int32, device=qp.device)
+    with region("search.route"):
+        entry = route_entries(qs, routing_ids, node_sketch, metric)
+        ones = torch.ones((b, 1), dtype=torch.bool, device=qp.device)
+        d_entry = exact_scorer(exact_ctx, qp, entry[:, None], ones)[:, 0]
+        pool_d, pool_code = _init_pool(entry, d_entry, ef)
+        aq_i = torch.full((b, aq_width), SENTINEL, dtype=torch.int32, device=qp.device)
+        aq_d = torch.full((b, aq_width), _INF, dtype=torch.float32, device=qp.device)
+        n_exact = torch.ones((b,), dtype=torch.int32, device=qp.device)
 
     def cond(state):
         pool_d, pool_code, aq_d, _, _ = state
@@ -413,27 +428,32 @@ def batched_sketch_gated_query(qp, qs, exact_ctx, scale, neighbors, nbr_sketch,
 
     def body(state):
         pool_d, pool_code, aq_d, aq_i, n_exact = state
-        pool_code, sel_ids, sel_valid = _pop(pool_d, pool_code, expand_width)
-        nbr_ids, nbr_valid, raw = _sketch_hop(neighbors, nbr_sketch, sel_ids, sel_valid)
-        d_approx = proj_ops.sketch_distance_calibrated(qs, raw, metric, scale, dim)
-        d_approx = torch.where(nbr_valid, d_approx, _INF)
-        nbr_ids = torch.where(nbr_valid, nbr_ids, n)
-        prom_d, prom_ids, aq_d, aq_i = _aq_update(nbr_ids, d_approx, aq_d, aq_i, pool_code,
-                                                  n, promote_width, hop_merge_mode)
-        pool_d, pool_code, n_exact = _rescore_into_pool(
-            exact, pool_d, pool_code, prom_ids, prom_d < _INF, n_exact)
+        with region("search.hop.expand"):
+            pool_code, sel_ids, sel_valid = _pop(pool_d, pool_code, expand_width)
+            nbr_ids, nbr_valid, raw = _sketch_hop(neighbors, nbr_sketch, sel_ids, sel_valid)
+            d_approx = proj_ops.sketch_distance_calibrated(qs, raw, metric, scale, dim)
+            d_approx = torch.where(nbr_valid, d_approx, _INF)
+            nbr_ids = torch.where(nbr_valid, nbr_ids, n)
+        with region("search.hop.merge"):
+            prom_d, prom_ids, aq_d, aq_i = _aq_update(nbr_ids, d_approx, aq_d, aq_i,
+                                                      pool_code, n, promote_width,
+                                                      hop_merge_mode)
+        with region("search.hop.rescore"):
+            pool_d, pool_code, n_exact = _rescore_into_pool(
+                exact, pool_d, pool_code, prom_ids, prom_d < _INF, n_exact)
         return pool_d, pool_code, aq_d, aq_i, n_exact
 
     state = (pool_d, pool_code, aq_d, aq_i, n_exact)
     pool_d, pool_code, aq_d, aq_i, n_exact = _run_hops(
         cond, body, state, max_iters, static_iters)
-    if final_rescore > 0:
-        # One end-of-loop exact rescore of the AQ head merges true
-        # neighbours a narrow promote_width left in the queue.
-        fr = min(final_rescore, aq_width)
-        pool_d, pool_code, n_exact = _rescore_into_pool(
-            exact, pool_d, pool_code, aq_i[:, :fr], aq_d[:, :fr] < _INF, n_exact)
-    return pool_d[:, :k], (pool_code >> 1)[:, :k], n_exact
+    with region("search.final"):
+        if final_rescore > 0:
+            # One end-of-loop exact rescore of the AQ head merges true
+            # neighbours a narrow promote_width left in the queue.
+            fr = min(final_rescore, aq_width)
+            pool_d, pool_code, n_exact = _rescore_into_pool(
+                exact, pool_d, pool_code, aq_i[:, :fr], aq_d[:, :fr] < _INF, n_exact)
+        return pool_d[:, :k], (pool_code >> 1)[:, :k], n_exact
 
 
 def route_entries(qs: torch.Tensor, routing_ids: torch.Tensor,
@@ -492,16 +512,16 @@ def batched_two_level_search(qp, exact_ctx, nbr_codes, prep_ctx, neighbors, entr
     _check_hop_merge(hop_merge, n)
     promote_width = min(promote_width, expand_width * m)
     dev = qp.device
-    tables = prep_fn(prep_ctx, qp)
-
-    entry = torch.as_tensor(entry_point, dtype=torch.int32, device=dev)
-    entry = torch.clamp(entry.expand(b), min=0).contiguous()
-    d_entry = exact_scorer(exact_ctx, qp, entry[:, None],
-                           torch.ones((b, 1), dtype=torch.bool, device=dev))[:, 0]
-    pool_d, pool_code = _init_pool(entry, d_entry, ef)
-    aq_i = torch.full((b, aq_width), SENTINEL, dtype=torch.int32, device=dev)
-    aq_d = torch.full((b, aq_width), _INF, dtype=torch.float32, device=dev)
-    n_exact = torch.ones((b,), dtype=torch.int32, device=dev)
+    with region("search.route"):
+        tables = prep_fn(prep_ctx, qp)
+        entry = torch.as_tensor(entry_point, dtype=torch.int32, device=dev)
+        entry = torch.clamp(entry.expand(b), min=0).contiguous()
+        d_entry = exact_scorer(exact_ctx, qp, entry[:, None],
+                               torch.ones((b, 1), dtype=torch.bool, device=dev))[:, 0]
+        pool_d, pool_code = _init_pool(entry, d_entry, ef)
+        aq_i = torch.full((b, aq_width), SENTINEL, dtype=torch.int32, device=dev)
+        aq_d = torch.full((b, aq_width), _INF, dtype=torch.float32, device=dev)
+        n_exact = torch.ones((b,), dtype=torch.int32, device=dev)
 
     def cond(state):
         pool_d, pool_code, aq_d, _, _ = state
@@ -516,41 +536,45 @@ def batched_two_level_search(qp, exact_ctx, nbr_codes, prep_ctx, neighbors, entr
 
     def body(state):
         pool_d, pool_code, aq_d, aq_i, n_exact = state
-        pool_code, sel_ids, sel_valid = _pop(pool_d, pool_code, expand_width)
-        safe, nbr_ids, nbr_valid = _expand(neighbors, sel_ids, sel_valid)
-        blocks = nbr_codes[safe].reshape(b, nbr_ids.shape[1], -1)  # [B, X*m0, S]
-        d_approx = approx_scorer(tables, blocks, nbr_valid)
-        nbr_ids = torch.where(nbr_valid, nbr_ids, n)
-        prom_d, prom_ids, aq_d, aq_i = _aq_update(nbr_ids, d_approx, aq_d, aq_i, pool_code,
-                                                  n, promote_width, hop_merge)
+        with region("search.hop.expand"):
+            pool_code, sel_ids, sel_valid = _pop(pool_d, pool_code, expand_width)
+            safe, nbr_ids, nbr_valid = _expand(neighbors, sel_ids, sel_valid)
+            blocks = nbr_codes[safe].reshape(b, nbr_ids.shape[1], -1)  # [B, X*m0, S]
+            d_approx = approx_scorer(tables, blocks, nbr_valid)
+            nbr_ids = torch.where(nbr_valid, nbr_ids, n)
+        with region("search.hop.merge"):
+            prom_d, prom_ids, aq_d, aq_i = _aq_update(nbr_ids, d_approx, aq_d, aq_i,
+                                                      pool_code, n, promote_width, hop_merge)
         prom_valid = prom_d < _INF
-        if promote_exact:
-            pool_d, pool_code, n_exact = _rescore_into_pool(
-                exact, pool_d, pool_code, prom_ids, prom_valid, n_exact)
-        else:
-            # Pure-ADC hop: the AQ head enters the pool at its ADC distance
-            # (+inf where not valid).
-            pool_d, pool_code = _merge_into_pool(pool_d, pool_code, prom_d, prom_ids,
-                                                 prom_valid)
+        with region("search.hop.rescore"):
+            if promote_exact:
+                pool_d, pool_code, n_exact = _rescore_into_pool(
+                    exact, pool_d, pool_code, prom_ids, prom_valid, n_exact)
+            else:
+                # Pure-ADC hop: the AQ head enters the pool at its ADC
+                # distance (+inf where not valid).
+                pool_d, pool_code = _merge_into_pool(pool_d, pool_code, prom_d, prom_ids,
+                                                     prom_valid)
         return pool_d, pool_code, aq_d, aq_i, n_exact
 
     state = (pool_d, pool_code, aq_d, aq_i, n_exact)
     pool_d, pool_code, aq_d, aq_i, n_exact = _run_hops(
         cond, body, state, max_iters, static_iters)
-    if final_rescore > 0 and promote_exact:
-        fr = min(final_rescore, aq_width)
-        pool_d, pool_code, n_exact = _rescore_into_pool(
-            exact, pool_d, pool_code, aq_i[:, :fr], aq_d[:, :fr] < _INF, n_exact)
-    pool_ids = pool_code >> 1
-    if not promote_exact:
-        # One exact rescore of the pooled ef candidates, sorted stably by
-        # distance (lax.sort with num_keys=1; -0.0 equals +0.0).
-        valid = pool_d < _INF
-        d_re = exact(torch.where(valid, pool_ids, 0), valid)
-        order = argsort(d_re)
-        pool_d, pool_ids = d_re.gather(1, order), pool_ids.gather(1, order)
-        n_exact = n_exact + valid.sum(dim=1, dtype=torch.int32)
-    return pool_d, pool_ids, n_exact
+    with region("search.final"):
+        if final_rescore > 0 and promote_exact:
+            fr = min(final_rescore, aq_width)
+            pool_d, pool_code, n_exact = _rescore_into_pool(
+                exact, pool_d, pool_code, aq_i[:, :fr], aq_d[:, :fr] < _INF, n_exact)
+        pool_ids = pool_code >> 1
+        if not promote_exact:
+            # One exact rescore of the pooled ef candidates, sorted stably by
+            # distance (lax.sort with num_keys=1; -0.0 equals +0.0).
+            valid = pool_d < _INF
+            d_re = exact(torch.where(valid, pool_ids, 0), valid)
+            order = argsort(d_re)
+            pool_d, pool_ids = d_re.gather(1, order), pool_ids.gather(1, order)
+            n_exact = n_exact + valid.sum(dim=1, dtype=torch.int32)
+        return pool_d, pool_ids, n_exact
 
 
 def default_max_iters(ef: int, expand_width: int) -> int:
@@ -591,6 +615,7 @@ class StoredSearcher:
         else:
             self._routing = None
 
+    @traced("stored.search")
     def search(self, queries, k: int, ef: int = 64, expand_width: int = 4,
                max_iters: int | None = None, gate: str = "auto",
                promote_width: int | None = None, static_loop: bool = False,

@@ -25,6 +25,7 @@ from islands_tpu_torch import convert
 from islands_tpu_torch.device import resolve_device, to_device
 from islands_tpu_torch.models import bert as bert_mod
 from islands_tpu_torch.models import modernbert as modernbert_mod
+from islands_tpu_torch.utils.tracing import region
 
 
 class ModelArchitecture(str, enum.Enum):
@@ -251,9 +252,10 @@ class TextEncoder:
 
     def encode_tokens(self, ids, mask) -> torch.Tensor:
         """ids + mask [B, L] -> embeddings [B, d] float32 on the encoder's
-        device."""
-        return bert_mod.encode(self.model, to_device(ids, self.device),
-                               to_device(mask, self.device), self.config.normalize)
+        device (traced as the region "encoder.forward")."""
+        with region("encoder.forward"):
+            return bert_mod.encode(self.model, to_device(ids, self.device),
+                                   to_device(mask, self.device), self.config.normalize)
 
     def embed_texts(self, texts: list[str]) -> np.ndarray:
         """Batch-encode texts -> [n, dim] float32. Batches are grouped by

@@ -7,6 +7,10 @@ ids' token rows and runs the encoder on them: LEANN's per-hop recompute.
 The reference's provider always runs the BERT forward, whatever the
 encoder's architecture, so a provider over a ModernBERT encoder fails there.
 This one runs the encoder's own module (models/bert.encode takes either).
+
+Tracing (utils/tracing): `embed` is the region "provider.embed" and counts
+"provider.rows", the rows it encodes; each encoder call inside it is a
+region "encoder.forward".
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import torch
 from islands_tpu_torch.device import to_device
 from islands_tpu_torch.models.bert import encode
 from islands_tpu_torch.models.encoder import TextEncoder
+from islands_tpu_torch.utils.tracing import count, region
 
 #: `embed` runs the encoder on at most EncoderConfig.batch_size times this
 #: many rows at once (4096 rows at the default batch size of 64); a hop that
@@ -54,16 +59,19 @@ class EncoderEmbeddingProvider:
                           device=self.device)
         for s in range(0, safe.numel(), chunk):
             rows = safe[s:s + chunk]
-            out[s:s + chunk] = encode(self.encoder.model, self.token_ids[rows],
-                                      self.token_mask[rows], normalize)
+            with region("encoder.forward"):
+                out[s:s + chunk] = encode(self.encoder.model, self.token_ids[rows],
+                                          self.token_mask[rows], normalize)
         return out
 
     def embed(self, ids: torch.Tensor) -> torch.Tensor:
         """ids [...] -> embeddings [..., d] float32 on the provider's device.
         Out-of-range ids are clamped (callers mask them)."""
-        ids = to_device(ids, self.device)
-        rows = self._encode_rows(ids, self._normalize) - self.center
-        return rows.view(*ids.shape, self.dimension)
+        with region("provider.embed"):
+            ids = to_device(ids, self.device)
+            count("provider.rows", ids.numel())
+            rows = self._encode_rows(ids, self._normalize) - self.center
+            return rows.view(*ids.shape, self.dimension)
 
     def with_center(self, sample: int = 8192, batch: int = 256) -> "EncoderEmbeddingProvider":
         """A provider that subtracts the corpus mean from every embedding,
