@@ -30,12 +30,15 @@ region "search.hop" holding its "search.hop.sync" read and counting
 "search.hops" once per body run; the gated loops split routing
 ("search.route"), a hop's steps ("search.hop.expand", "search.hop.merge",
 "search.hop.rescore") and the end ("search.final"); a StoredSearcher query
-is the root region "stored.search".
+is the root region "stored.search". A hop replayed as a CUDA graph counts
+"search.hop.graphed" too; its step regions open only while it is captured.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -87,12 +90,52 @@ def make_recompute_scorer(metric: DistanceMetric):
     return functools.partial(recompute_scorer, metric=metric)
 
 
-def _run_hops(cond, body, state: tuple, max_iters: int, static_iters: bool):
+def _freeze_step(cond, body, state: tuple, active: torch.Tensor, last: bool = False):
+    """One hop of the freeze route: the body on the whole batch, rows whose
+    `active` mask is false keeping their old state (`torch.where(active,
+    new, old)`); then, unless `last`, the next hop's mask `cond(state)` and
+    its `any()`, both left on the device. -> (state, active, flag)."""
+    new = body(state)
+    state = tuple(torch.where(active.view(-1, *([1] * (o.dim() - 1))), nw, o)
+                  for nw, o in zip(new, state))
+    if last:
+        return state, None, None
+    active = cond(state)
+    return state, active, active.any()
+
+
+class _EagerHops:
+    """The freeze route's hops launched one op at a time."""
+
+    def __init__(self, cond, body):
+        self.cond, self.body = cond, body
+
+    def begin(self, state: tuple) -> torch.Tensor:
+        self.state = state
+        self.active = self.cond(state)
+        return self.active.any()
+
+    def step(self, last: bool):
+        self.state, self.active, flag = _freeze_step(self.cond, self.body, self.state,
+                                                     self.active, last)
+        return flag
+
+    def result(self) -> tuple:
+        return self.state
+
+
+def _run_hops(cond, body, state: tuple, max_iters: int, static_iters: bool, hops=None):
     """The reference vmaps a `lax.while_loop`, so each query's state freezes
     once its own `cond` is false while the others keep hopping. Here `cond`
     gives a [B] mask, the body runs on the whole batch, and rows whose cond
-    was false keep their old state (`torch.where(active, new, old)`); the
-    loop stops when no query is active or after `max_iters` hops.
+    was false keep their old state; the loop stops when no query is active
+    or after `max_iters` hops.
+
+    The host reads one flag a pass: `cond`'s `any()` of the first state, then
+    the flag each hop leaves for the next (`_freeze_step`), none after the
+    last allowed hop. `hops` runs the hops (`begin(state) -> flag`,
+    `step(last) -> flag`, `result()`); by default `_EagerHops`, a
+    `_HopGraph` replays each hop as one CUDA graph.
 
     `static_iters=True` is the reference's fixed-trip `lax.scan`: exactly
     `max_iters` hops with no freeze (the body is a fixed point on converged
@@ -103,19 +146,20 @@ def _run_hops(cond, body, state: tuple, max_iters: int, static_iters: bool):
                 count("search.hops", 1)
                 state = body(state)
         return state
-    for _ in range(max_iters):
+    if max_iters <= 0:
+        return state
+    hops = hops or _EagerHops(cond, body)
+    for it in range(max_iters):
         with region("search.hop"):
-            active = cond(state)
+            if it == 0:
+                flag = hops.begin(state)
             with region("search.hop.sync"):
-                go = bool(active.any())
+                go = bool(flag)
             if not go:
                 break
             count("search.hops", 1)
-            new = body(state)
-            state = tuple(
-                torch.where(active.view(-1, *([1] * (o.dim() - 1))), nw, o)
-                for nw, o in zip(new, state))
-    return state
+            flag = hops.step(last=it == max_iters - 1)
+    return hops.result()
 
 
 def _not_in_set(ids: torch.Tensor, member_ids: torch.Tensor) -> torch.Tensor:
@@ -384,34 +428,10 @@ def _rescore_into_pool(score, pool_d, pool_code, ids, valid, n_exact):
     return pool_d, pool_code, n_exact + valid.sum(dim=1, dtype=torch.int32)
 
 
-def batched_sketch_gated_query(qp, qs, exact_ctx, scale, neighbors, nbr_sketch,
-                               node_sketch, routing_ids, *, exact_scorer, metric, dim,
-                               ef, k, aq_width, promote_width, expand_width=4,
-                               max_iters=100, static_iters=False,
-                               final_rescore=0, hop_merge_mode="inline"):
-    """Two-level sketch-gated query with per-query routing entries.
-
-    The pool (and so navigation and termination) runs on EXACT distances,
-    `exact_scorer(exact_ctx, q, ids, valid)`: stored rows or embeddings
-    recomputed through a provider; calibrated sketch distances of each hop's
-    discoveries feed the AQ, and its best `promote_width` entries per hop
-    are scored exactly. With a recompute scorer, mean(n_exact) / N is the
-    recompute fraction. Returns (dists [B, k], ids [B, k], n_exact [B])."""
-    b = qp.shape[0]
-    n, m = neighbors.shape
-    _check_hop_merge(hop_merge_mode, n)
-    # A hop discovers at most expand_width * m candidates; a wider promote
-    # window would shrink the AQ slice below aq_width.
-    promote_width = min(promote_width, expand_width * m)
-
-    with region("search.route"):
-        entry = route_entries(qs, routing_ids, node_sketch, metric)
-        ones = torch.ones((b, 1), dtype=torch.bool, device=qp.device)
-        d_entry = exact_scorer(exact_ctx, qp, entry[:, None], ones)[:, 0]
-        pool_d, pool_code = _init_pool(entry, d_entry, ef)
-        aq_i = torch.full((b, aq_width), SENTINEL, dtype=torch.int32, device=qp.device)
-        aq_d = torch.full((b, aq_width), _INF, dtype=torch.float32, device=qp.device)
-        n_exact = torch.ones((b,), dtype=torch.int32, device=qp.device)
+def _gated_hop_fns(qp, qs, exact_ctx, scale, neighbors, nbr_sketch, *, exact_scorer,
+                   metric, dim, expand_width, promote_width, hop_merge_mode):
+    """The sketch-gated query loop's (cond, body, exact) over queries qp, qs."""
+    n = neighbors.shape[0]
 
     def cond(state):
         pool_d, pool_code, aq_d, _, _ = state
@@ -443,9 +463,59 @@ def batched_sketch_gated_query(qp, qs, exact_ctx, scale, neighbors, nbr_sketch,
                 exact, pool_d, pool_code, prom_ids, prom_d < _INF, n_exact)
         return pool_d, pool_code, aq_d, aq_i, n_exact
 
+    return cond, body, exact
+
+
+def batched_sketch_gated_query(qp, qs, exact_ctx, scale, neighbors, nbr_sketch,
+                               node_sketch, routing_ids, *, exact_scorer, metric, dim,
+                               ef, k, aq_width, promote_width, expand_width=4,
+                               max_iters=100, static_iters=False,
+                               final_rescore=0, hop_merge_mode="inline", hop_graphs=None):
+    """Two-level sketch-gated query with per-query routing entries.
+
+    The pool (and so navigation and termination) runs on EXACT distances,
+    `exact_scorer(exact_ctx, q, ids, valid)`: stored rows or embeddings
+    recomputed through a provider; calibrated sketch distances of each hop's
+    discoveries feed the AQ, and its best `promote_width` entries per hop
+    are scored exactly. With a recompute scorer, mean(n_exact) / N is the
+    recompute fraction. Returns (dists [B, k], ids [B, k], n_exact [B]).
+
+    With a `HopGraphCache` (`hop_graphs`) and a freeze route over a
+    non-empty batch, each hop replays one CUDA graph of the same ops
+    (`_HopGraph`); routing and the final rescore stay eager."""
+    b = qp.shape[0]
+    n, m = neighbors.shape
+    _check_hop_merge(hop_merge_mode, n)
+    # A hop discovers at most expand_width * m candidates; a wider promote
+    # window would shrink the AQ slice below aq_width.
+    promote_width = min(promote_width, expand_width * m)
+
+    with region("search.route"):
+        entry = route_entries(qs, routing_ids, node_sketch, metric)
+        ones = torch.ones((b, 1), dtype=torch.bool, device=qp.device)
+        d_entry = exact_scorer(exact_ctx, qp, entry[:, None], ones)[:, 0]
+        pool_d, pool_code = _init_pool(entry, d_entry, ef)
+        aq_i = torch.full((b, aq_width), SENTINEL, dtype=torch.int32, device=qp.device)
+        aq_d = torch.full((b, aq_width), _INF, dtype=torch.float32, device=qp.device)
+        n_exact = torch.ones((b,), dtype=torch.int32, device=qp.device)
+
+    def hop_fns(qp, qs):
+        return _gated_hop_fns(qp, qs, exact_ctx, scale, neighbors, nbr_sketch,
+                              exact_scorer=exact_scorer, metric=metric, dim=dim,
+                              expand_width=expand_width, promote_width=promote_width,
+                              hop_merge_mode=hop_merge_mode)
+
+    cond, body, exact = hop_fns(qp, qs)
     state = (pool_d, pool_code, aq_d, aq_i, n_exact)
-    pool_d, pool_code, aq_d, aq_i, n_exact = _run_hops(
-        cond, body, state, max_iters, static_iters)
+    if hop_graphs is not None and not static_iters and b > 0:
+        key = (b, ef, aq_width, promote_width, expand_width, hop_merge_mode)
+        graph = hop_graphs.get(key, lambda: _HopGraph(qp, qs, state, hop_fns,
+                                                      hop_graphs.capture))
+        with graph.lock:
+            state = _run_hops(cond, body, state, max_iters, False, graph.bind(qp, qs))
+    else:
+        state = _run_hops(cond, body, state, max_iters, static_iters)
+    pool_d, pool_code, aq_d, aq_i, n_exact = state
     with region("search.final"):
         if final_rescore > 0:
             # One end-of-loop exact rescore of the AQ head merges true
@@ -454,6 +524,112 @@ def batched_sketch_gated_query(qp, qs, exact_ctx, scale, neighbors, nbr_sketch,
             pool_d, pool_code, n_exact = _rescore_into_pool(
                 exact, pool_d, pool_code, aq_i[:, :fr], aq_d[:, :fr] < _INF, n_exact)
         return pool_d[:, :k], (pool_code >> 1)[:, :k], n_exact
+
+
+# Shapes whose hop graph a StoredSearcher keeps; the least recently used
+# goes first.
+HOP_GRAPHS_KEPT = 4
+
+
+def capture_cuda_graph(run, device: torch.device):
+    """Warm `run` up once on a side stream (as torch.cuda.graphs asks), then
+    capture it as one CUDA graph on `device`. -> (replay, the tensor `run`
+    returned, which every replay rewrites in place)."""
+    with torch.cuda.device(device):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            run()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: a capture must not fail other threads' searches.
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = run()
+
+    def replay():
+        with torch.cuda.device(device):
+            graph.replay()
+
+    return replay, out
+
+
+class HopGraphCache:
+    """A searcher's captured hops, one `_HopGraph` per key (the batch and
+    the loop's widths), at most HOP_GRAPHS_KEPT of them, least recently used
+    out first. `capture(run, device) -> (replay, out)` makes the graph
+    (`capture_cuda_graph`)."""
+
+    def __init__(self, capture=capture_cuda_graph):
+        self.capture = capture
+        self._graphs: collections.OrderedDict = collections.OrderedDict()
+        self._lock = threading.Lock()
+
+    def get(self, key, make):
+        """The entry under `key`, made by `make()` (a capture) if missing."""
+        with self._lock:
+            graph = self._graphs.get(key)
+            if graph is None:
+                graph = self._graphs[key] = make()
+                while len(self._graphs) > HOP_GRAPHS_KEPT:
+                    self._graphs.popitem(last=False)
+            else:
+                self._graphs.move_to_end(key)
+            return graph
+
+
+class _HopGraph:
+    """One hop of the freeze route (`_freeze_step`: body, freeze, the next
+    hop's mask and flag) captured over static buffers: the queries, the five
+    state tensors and the active mask, which each replay rewrites in place.
+    A call binds its queries, `begin` copies its first state in, each `step`
+    replays once; `result` clones the state out, so nothing returned aliases
+    the buffers. Hold `lock` from `bind` to `result`.
+
+    Capture adds nothing to `hop_merge.launches`; each replay adds the fused
+    hop-merge launches it holds, as the eager hop would."""
+
+    def __init__(self, qp, qs, state: tuple, hop_fns, capture):
+        self.lock = threading.Lock()
+        self.qp, self.qs = qp.clone(), qs.clone()
+        self.state = tuple(t.clone() for t in state)
+        self.cond, body, _ = hop_fns(self.qp, self.qs)
+        self.active = self.cond(self.state)
+        self.k1 = 0
+
+        def run():
+            k0 = hop_merge.launches
+            new, active, flag = _freeze_step(self.cond, body, self.state, self.active)
+            for buf, t in zip(self.state, new):
+                buf.copy_(t)
+            self.active.copy_(active)
+            self.k1 = hop_merge.launches - k0
+            return flag
+
+        launches = hop_merge.launches
+        try:
+            self.replay, self.flag = capture(run, self.qp.device)
+        finally:
+            hop_merge.launches = launches
+
+    def bind(self, qp, qs) -> "_HopGraph":
+        self.qp.copy_(qp)
+        self.qs.copy_(qs)
+        return self
+
+    def begin(self, state: tuple) -> torch.Tensor:
+        for buf, t in zip(self.state, state):
+            buf.copy_(t)
+        self.active.copy_(self.cond(self.state))
+        return self.active.any()
+
+    def step(self, last: bool) -> torch.Tensor:
+        self.replay()
+        count("search.hop.graphed", 1)
+        hop_merge.launches += self.k1
+        return self.flag
+
+    def result(self) -> tuple:
+        return tuple(t.clone() for t in self.state)
 
 
 def route_entries(qs: torch.Tensor, routing_ids: torch.Tensor,
@@ -588,7 +764,9 @@ class StoredSearcher:
     sketch-gated path: per-query routing entries, hops over inline neighbour
     sketch blocks, exact scoring of the AQ heads. gate="exact" runs the
     per-hop exact loop. Runs on CUDA unless `device="cpu"` is asked for; the
-    graph, corpus and sketch move to that device."""
+    graph, corpus and sketch move to that device. On CUDA the sketch gate's
+    freeze route replays each hop as one CUDA graph, captured on the first
+    call of each shape and kept by the searcher (`HopGraphCache`)."""
 
     def __init__(self, graph: CsrGraph, x, metric: DistanceMetric = DistanceMetric.COSINE,
                  sketch: proj_ops.SketchIndex | None = None, routing_size: int = 1024,
@@ -614,6 +792,8 @@ class StoredSearcher:
                 device=dev)
         else:
             self._routing = None
+        # The sketch gate's freeze route replays each hop as a CUDA graph.
+        self._hop_graphs = HopGraphCache() if self.device.type == "cuda" else None
 
     @traced("stored.search")
     def search(self, queries, k: int, ef: int = 64, expand_width: int = 4,
@@ -647,7 +827,7 @@ class StoredSearcher:
                 aq_width=aq_width or max(ef, 64), promote_width=promote,
                 expand_width=expand_width, max_iters=max_iters,
                 static_iters=static_loop, final_rescore=final_rescore,
-                hop_merge_mode=hop_merge)
+                hop_merge_mode=hop_merge, hop_graphs=self._hop_graphs)
             return d, ids
         if gate != "exact":
             raise ValueError(f"unknown gate {gate!r}")

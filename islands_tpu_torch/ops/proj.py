@@ -117,8 +117,9 @@ def sketch_distance_calibrated(qs: torch.Tensor, raw: torch.Tensor,
     diff = raw - qs
     l2 = torch.sqrt(torch.clamp(torch.sum(diff * diff, dim=-1) * inv, min=0.0))
     if metric == DistanceMetric.MANHATTAN:
-        return l2 * torch.sqrt(torch.tensor(2.0 * dim / math.pi,
-                                            dtype=torch.float32, device=l2.device))
+        # A device fill, not a host copy, so a CUDA graph can capture it.
+        return l2 * torch.sqrt(torch.full((), 2.0 * dim / math.pi,
+                                          dtype=torch.float32, device=l2.device))
     return l2
 
 

@@ -675,3 +675,127 @@ def test_modernbert_base_on_the_card():
     direct = bert_mod.encode(enc.model, prov.token_ids[flat], prov.token_mask[flat])
     assert rows.shape == (2, 3, cfg.hidden_size)
     assert torch.equal(rows.reshape(-1, cfg.hidden_size), direct)
+
+
+# -- the sketch gate's hop replayed as a CUDA graph --------------------------
+
+P16 = dict(gate="sketch", ef=32, promote_width=16, max_iters=12, expand_width=2)
+
+
+@pytest.fixture(scope="module")
+def graph_searcher():
+    """A 32,768 x 128 stored index under the sketch gate, on the card, and
+    4,096 queries near its rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from islands_tpu_torch.core.build import build_index_with_sketch
+    from islands_tpu_torch.core.search import StoredSearcher
+
+    rng = np.random.default_rng(17)
+    centres = rng.standard_normal((256, 128)).astype(np.float32) * 4
+    x = centres[rng.integers(0, 256, 32768)] + rng.standard_normal((32768, 128))
+    q = centres[rng.integers(0, 256, 4096)] + rng.standard_normal((4096, 128))
+    cfg = LeannConfig(metric=DistanceMetric.EUCLIDEAN, wave_size=4096, sketch_dims=48,
+                      ef_construction=64, reverse_slack=20)
+    x = torch.from_numpy(x.astype(np.float32)).cuda()
+    graph, sketch = build_index_with_sketch(x, cfg, device="cuda")
+    searcher = StoredSearcher(graph, x, cfg.metric, sketch=sketch, routing_size=4096,
+                              device="cuda")
+    return searcher, torch.from_numpy(q.astype(np.float32)).cuda()
+
+
+def _gated_call(searcher, q, kw, monkeypatch, graphs):
+    """One search through the graph cache `graphs` (None: eager). ->
+    (dists, ids, n_exact, K1 launches, tracing counters)."""
+    from islands_tpu_torch.core import search as search_mod
+    from islands_tpu_torch.utils import tracing
+
+    got = []
+    real = search_mod.batched_sketch_gated_query
+
+    def spy(*a, **k):
+        out = real(*a, **k)
+        got.append(out[2])
+        return out
+
+    monkeypatch.setattr(search_mod, "batched_sketch_gated_query", spy)
+    monkeypatch.setattr(searcher, "_hop_graphs", graphs)
+    before = hop_merge.launches
+    tracing.reset()
+    tracing.enable()
+    try:
+        d, ids = searcher.search(q, k=10, **kw)
+        torch.cuda.synchronize()
+    finally:
+        tracing.disable()
+    counters = tracing.snapshot()["counters"]
+    tracing.reset()
+    monkeypatch.setattr(search_mod, "batched_sketch_gated_query", real)
+    return d, ids, got[0], hop_merge.launches - before, counters
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("final_rescore", [0, 64])
+@pytest.mark.parametrize("mode", ["fused", "inline"])
+@pytest.mark.parametrize("b", [1, 4096])
+def test_hop_graph_answers_as_the_eager_hops(graph_searcher, b, mode, final_rescore,
+                                             monkeypatch):
+    """Graphed and eager StoredSearcher.search agree bit for bit (ids,
+    distances, n_exact) on the capturing call and on a replaying one; the
+    replays count the eager route's K1 launches, and one
+    `search.hop.graphed` per `search.hops`."""
+    from islands_tpu_torch.core.search import HopGraphCache
+
+    searcher, q = graph_searcher
+    kw = dict(P16, hop_merge=mode, final_rescore=final_rescore)
+    graphs = HopGraphCache()
+    for part in (q[:b], q.flip(0)[:b]):
+        want = _gated_call(searcher, part, kw, monkeypatch, None)
+        got = _gated_call(searcher, part, kw, monkeypatch, graphs)
+        for w, g in zip(want[:3], got[:3]):
+            assert torch.equal(w, g)
+        assert got[3] == want[3] == (want[4]["search.hops"] if mode == "fused" else 0)
+        assert got[4]["search.hop.graphed"] == got[4]["search.hops"] == want[4]["search.hops"]
+        assert "search.hop.graphed" not in want[4]
+    assert list(graphs._graphs) == [(b, 32, 64, 16, 2, mode)]
+
+
+@pytest.mark.cuda
+def test_hop_graph_per_batch_size_and_answers_outlive_the_next_call(graph_searcher,
+                                                                   monkeypatch):
+    from islands_tpu_torch.core.search import HopGraphCache
+
+    searcher, q = graph_searcher
+    kw = dict(P16, hop_merge="fused")
+    graphs = HopGraphCache()
+    first = _gated_call(searcher, q[:64], kw, monkeypatch, graphs)
+    kept = [t.clone() for t in first[:3]]
+    second = _gated_call(searcher, q[64:96], kw, monkeypatch, graphs)
+    assert list(graphs._graphs) == [(64, 32, 64, 16, 2, "fused"), (32, 32, 64, 16, 2, "fused")]
+    third = _gated_call(searcher, q[96:160], kw, monkeypatch, graphs)
+    for t, k in zip(first[:3], kept):
+        assert torch.equal(t, k)
+    assert not torch.equal(third[1], first[1])
+    assert second[1].shape == (32, 10)
+
+
+@pytest.mark.cuda
+def test_hop_graph_replays_show_hop_merge_in_the_profiler(graph_searcher, monkeypatch):
+    """The benchmark's k1_roofline_pct finds K1 by name in torch.profiler's
+    device events: a replayed hop's kernels must still be recorded."""
+    from torch.autograd import DeviceType
+
+    from islands_tpu_torch.core.search import HopGraphCache
+
+    searcher, q = graph_searcher
+    kw = dict(P16, hop_merge="fused", final_rescore=64)
+    graphs = HopGraphCache()
+    _gated_call(searcher, q, kw, monkeypatch, graphs)  # captures
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, _, _, launches, counters = _gated_call(searcher, q, kw, monkeypatch, graphs)
+    assert counters["search.hop.graphed"] == launches > 0
+    k1 = [e for e in prof.events()
+          if e.device_type == DeviceType.CUDA and "hop_merge" in e.name]
+    assert len(k1) == launches
+    assert all(e.time_range.end > e.time_range.start for e in k1)
