@@ -17,7 +17,10 @@ Phases, each fatal on failure:
    and "smallest", which selects each query's r best candidates without
    writing the [B, N] sums; its time beside the chain it replaces), K4 (pairwise tiles, 3xTF32 on
    the tensor cores) within 1e-5 of the operands' squared norms (see
-   assert_pairwise_close), K5 (row gather) bit for bit. Then smallest_k's two
+   assert_pairwise_close), K5 (row gather) bit for bit, V1 (varlen attention,
+   Triton) at a mbcode16k recompute hop's 32 segments, global and local, each
+   segment within 5e-3 of the plain version by norm, its library call
+   flex_attention compiled with a segment (+ band) block mask. Then smallest_k's two
    routes (stable sort, top-k on unique keys) at the paths' row widths: equal
    positions, and the time of each, which sets merge.SORT_MAX_WIDTH.
 3. config 2, the main path of bench.py on the port: a seeded
@@ -107,7 +110,8 @@ Phases, each fatal on failure:
    responses alone; ms per islands_search call.
    12d. utils.tracing.span(block_on=...) around one K2 launch at 12a's shape
    records at least its CUDA-event time, alone and behind 2 ms of device work.
-13. ModernBERT (modernbert-base at its published width, random-init, bf16):
+13. ModernBERT (modernbert-base at its published width, random-init, bf16),
+   on its packed route: every forward on the card launches V1 once a layer.
    13a. the encoder bench (islands_tpu_torch.benches.encoder_bench.main, both
    modes: minilm-l6 and bge-base, then modernbert-base, at seq 256): tokens/s,
    texts/s, share of the bf16 peak by the reference bench's FLOP counts; the
@@ -115,15 +119,16 @@ Phases, each fatal on failure:
    padded rows (phase 8's cosine bounds); one encode at the recompute
    provider's chunk: its attention kernels and the memory it adds.
    13b. config 1 as in phase 9 with modernbert-base in place of bge-base, on
-   32 queries (a depth cut) and one timed pass: recall@10 (>= 0.90), QPS,
+   its 128 queries and one timed pass: recall@10 (>= 0.90), QPS,
    recompute fraction, encodes/s, peak device memory.
    13c. the service from Config(embedding_kind="encoder",
    embedding_model="modernbert-base").indexer_config() over
    islands_tpu_torch/core, stored and recompute: 16 text queries, the same
    hits from a fresh service; index s, ms per query.
 The kernels' launch counts are zeroed just before each path and read just
-after it; phases 8, 9, 11 and 13 launch none of them (phase 13 fails if
-one does), phase 12 K2 alone.
+after it; phases 8, 9 and 11 launch none of them, phase 12 K2 alone, and
+phase 13 V1 alone, once a layer of each packed forward on the card (it
+fails otherwise).
 
 Prints a JSON line of path figures, one of kernel figures, the card's name
 and power limit, and last `{"ok": true, "device": {...}}`. Exits non-zero,
@@ -157,6 +162,7 @@ import torch
 import torch.nn.functional as F
 
 import islands_tpu_torch
+from benchmark.harness import modernbert_work
 from islands_tpu_torch import cli, ops
 from islands_tpu_torch.benches import encoder_bench, gather_bench
 from islands_tpu_torch.config import Config, _parse_simple_yaml
@@ -181,6 +187,7 @@ from islands_tpu_torch.indexer.native import collect_chunks_native
 from islands_tpu_torch.indexer.service import EmbeddingConfig, IndexerConfig, IndexerService
 from islands_tpu_torch.models import bert as bert_mod
 from islands_tpu_torch.models.encoder import ModelArchitecture, TextEncoder, architecture_module
+from islands_tpu_torch.models.modernbert import ModernBertModel, rope_tables
 from islands_tpu_torch.models.provider import EMBED_CHUNK_BATCHES, EncoderEmbeddingProvider
 from islands_tpu_torch.ops import _cuda, merge
 from islands_tpu_torch.ops import proj as proj_ops
@@ -199,6 +206,7 @@ from islands_tpu_torch.ops.adc import (
 from islands_tpu_torch.ops.distance import brute_force_topk, prep_corpus, rowwise_distance
 from islands_tpu_torch.ops.gather import row_gather, row_gather_reference
 from islands_tpu_torch.ops.hop_merge import hop_merge, hop_merge_reference
+from islands_tpu_torch.ops import varlen_attention as va
 from islands_tpu_torch.ops.pairwise import (
     pairwise_l2,
     pairwise_l2_reference,
@@ -231,7 +239,9 @@ SMEM_LOOKUPS_PER_SM_CLOCK = 32
 # Each kernel: its wrapper (whose `launches` counts launches), source, the
 # TPU kernel it replaces and the CUDA kernel's name in the profiler (K1's
 # timed shapes take its warp route). K4a and K4b are two modes of one source,
-# K3's "sums" and "smallest" two routes of one.
+# K3's "sums" and "smallest" two routes of one. V1 (varlen attention) is
+# Triton, built at its first launch, and replaces no TPU kernel; its name
+# also prefixes its k rotation's, `varlen_attn_rope_k`.
 KERNELS = {
     "hop_merge": (hop_merge, "islands_tpu_torch/csrc/hop_merge.cu",
                   "islands_tpu/ops/pallas_kernels.py:412", "hop_merge_warp_kernel"),
@@ -247,8 +257,11 @@ KERNELS = {
                          "islands_tpu/ops/pallas_kernels.py:262", "pairwise_kernel<2>"),
     "row_gather": (row_gather, "islands_tpu_torch/csrc/row_gather.cu",
                    "benches/gather_bench.py:71", "row_gather_kernel"),
+    "varlen_attention": (va.varlen_attention, "islands_tpu_torch/ops/varlen_attention.py",
+                         "none", "varlen_attn"),
 }
-SOURCES = sorted({pathlib.Path(src).stem for _, src, _, _ in KERNELS.values()})
+SOURCES = sorted({pathlib.Path(src).stem for _, src, _, _ in KERNELS.values()
+                  if src.endswith(".cu")})
 
 # bench.py's five primary rungs: (ef, promote, max_iters, expand_width,
 # final_rescore).
@@ -287,6 +300,14 @@ PAIRWISE_MODES = ("l2", "l2_squared", "neg_dot")
 # K5's shapes: the gather bench's corpus and gather sizes, and a ragged K.
 GATHER_N, GATHER_D, GATHER_KS, GATHER_TIMED = 1_000_000, 128, (131072, 1048576, 1000), (131072,
                                                                                          1048576)
+# V1's shapes: a mbcode16k recompute hop, 32 chunks drawn (seed 0) from the
+# cell's log-uniform length law on [128, 2,048] (16,384 rows), at
+# modernbert-base's 12 heads of 64 in bf16; a local layer keeps +/- 64 keys.
+# Each segment's output within VARLEN_REL_ERR of the plain version's, by
+# norm (tests/test_torch_varlen_cuda.py gives the reason).
+VARLEN_ROWS, VARLEN_HEADS, VARLEN_DIM, VARLEN_WINDOW = 32, 12, 64, 64
+VARLEN_LAW = (16384, 128, 2048)
+VARLEN_REL_ERR = 5e-3
 
 # Phase 6: the prefix built before one 65,536-row re-index, the searches
 # run on the loaded and the in-memory index, and phase 3's headline knobs.
@@ -381,15 +402,18 @@ SPAN_DELAY_CYCLES = 4_000_000  # about 2 ms of device time queued before the lau
 # the CPU's float32 forward on MB_CHECK_ROWS rows at seq 256 drawn as the bench
 # draws them, every other row padded; one encode at the recompute provider's
 # chunk (4,096 rows at config 1's 128 tokens): its attention kernels and the
-# memory it adds. 13b: config 1 with modernbert-base in place of bge-base, its
-# queries cut from 128 to 32 and one timed pass, and no CPU check (13a's
-# holds the encoder): depth cuts for the time limit (at 64 queries phase 13
-# took 154.7 s on an H100 80GB HBM3 at 700 W, 13b 73.7 s of it). 13c: the
+# memory it adds. 13b: config 1 with modernbert-base in place of bge-base,
+# phase 9's 128 queries, one timed pass and no CPU check (13a's holds the
+# encoder). On the padded forward the queries were cut to 32 for the time
+# limit; at 32 the first queries of today's larger checkout read recall@10
+# .8812 on the padded route and .8875 on the packed one, at 128 .9430 and
+# .9477 (H100 80GB HBM3, 700 W), and the packed route runs 1.8x the
+# queries a second. 13c: the
 # service configured by Config(embedding_model="modernbert-base") over one
 # package directory of the checkout (a depth cut), stored and recompute.
 MB_PRESET = "modernbert-base"
 MB_CHECK_ROWS, MB_CHECK_SEQ = 16, 256
-MB_C1_QUERIES, MB_C1_PASSES = 32, 1
+MB_C1_QUERIES, MB_C1_PASSES = C1_QUERIES, 1
 MB_SERVICE_DIR = "islands_tpu_torch/core"
 
 # The card's bfloat16 encode against the port's float32 forward on the CPU:
@@ -1004,6 +1028,117 @@ def phase_row_gather() -> dict:
                 bound_ms=t["bound_ms"], bound_by="bytes", library_ms=t["library_ms"],
                 library="torch.index_select(x, 0, ids)", shape=[GATHER_N, GATHER_D, t["k"]],
                 timings=timings)
+
+
+def segment_rel_err(got, want, lengths) -> float:
+    """The largest ||got - want|| / ||want|| over packed segments."""
+    worst, start = 0.0, 0
+    for n in lengths:
+        a, b = got[start:start + n].double(), want[start:start + n].double()
+        worst = max(worst, float((a - b).norm() / b.norm()))
+        start += n
+    return worst
+
+
+def varlen_library(q, k, v, segs, window, rope):
+    """One library call that computes V1's function: flex_attention,
+    compiled, with a block mask of segment (and band) over the packed
+    tokens. q and k are rotated here, outside what is timed. -> (the call,
+    its output [T, heads, d])."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    cos, sin = rope[0][segs.positions], rope[1][segs.positions]
+    qr, kr = va._rotate(q, cos, sin), va._rotate(k, cos, sin)
+    doc, pos = segs.segment_ids, segs.positions
+
+    def mask_mod(b, h, qi, ki):
+        keep = doc[qi] == doc[ki]
+        if window is not None:
+            keep = keep & ((pos[qi] - pos[ki]).abs() <= window)
+        return keep
+
+    t = q.shape[0]
+    mask = create_block_mask(mask_mod, None, None, t, t, device=q.device)
+    fn = torch.compile(flex_attention, dynamic=False)
+    args = [x.transpose(0, 1).unsqueeze(0).contiguous() for x in (qr, kr, v)]
+
+    def call():
+        return fn(*args, block_mask=mask)
+
+    return call, call()[0].transpose(0, 1)
+
+
+def phase_varlen() -> dict:
+    """V1 against its plain version at a recompute hop's 32 segments of the
+    mbcode16k law, global (RoPE theta 160,000) and local (+/- 64, theta
+    10,000), RoPE in the kernel as the model runs it: each segment's output
+    within VARLEN_REL_ERR by norm. Times: the kernel's device time per call
+    (both its programs, torch.profiler) and by CUDA events, the plain
+    version's, its bound (the larger of 4 x heads x d FLOPs a pair attended
+    at the bf16 peak and q, k, v read and the output written once at HBM's
+    rate), and flex_attention's (one compiled library call, RoPE applied
+    before it)."""
+    lens = np.random.default_rng(0).choice(modernbert_work.log_uniform_lengths(*VARLEN_LAW),
+                                           size=VARLEN_ROWS, replace=False)
+    t, h, d = int(lens.sum()), VARLEN_HEADS, VARLEN_DIM
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    qkv = torch.randn((t, 3, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]  # strided, as the fused product's columns
+    segs = va.Segments.from_lengths(lens, "cuda")
+    kinds = []
+    for kind, window, theta in (("global", None, 160000.0), ("local", VARLEN_WINDOW, 10000.0)):
+        rope = tuple(torch.from_numpy(x).cuda() for x in rope_tables(VARLEN_LAW[2], d, theta))
+        before = va.varlen_attention.launches
+        got = va.varlen_attention(q, k, v, segs, window, rope)
+        torch.cuda.synchronize()
+        if va.varlen_attention.launches != before + 1:
+            raise AssertionError("varlen_attention did not count its launch")
+        plain = va.varlen_attention_reference(q, k, v, segs, window, rope)
+        err = segment_rel_err(got, plain, lens.tolist())
+        if not err < VARLEN_REL_ERR:
+            raise AssertionError(f"varlen_attention ({kind}) is {err:.2e} from its plain "
+                                 f"version, past {VARLEN_REL_ERR}")
+        log(f"  varlen_attention ({kind}) within {err:.2e} of its plain version by segment "
+            f"norm, {VARLEN_ROWS} segments, {t} tokens")
+
+        def fn():
+            return va.varlen_attention(q, k, v, segs, window, rope)
+
+        event_ms = time_ms(fn, 50)
+        _, ms = call_device_ms(fn, KERNELS["varlen_attention"][3], 50)
+        plain_ms = time_ms(lambda: va.varlen_attention_reference(q, k, v, segs, window, rope), 3)
+        pairs = float((lens * lens).sum() if window is None
+                      else modernbert_work.band_pairs(lens, window).sum())
+        flops, nbytes = 4.0 * h * d * pairs, 4.0 * t * h * d * 2
+        bound = 1e3 * max(flops / BF16_TC_OPS_PER_S, nbytes / HBM_BYTES_PER_S)
+        bound_by = "operations" if flops / BF16_TC_OPS_PER_S >= nbytes / HBM_BYTES_PER_S \
+            else "bytes"
+        library_ms, library_err, library_note = None, None, None
+        try:
+            call, lib_out = varlen_library(q, k, v, segs, window, rope)
+            torch.cuda.synchronize()
+            library_err = segment_rel_err(lib_out, plain, lens.tolist())
+            library_ms = time_ms(call, 50)
+        except Exception as exc:  # the yardstick only: record why it did not run
+            library_note = f"{type(exc).__name__}: {str(exc)[:200]}"
+        log(f"  varlen_attention {kind} at {t} tokens: kernel {ms:.4f} ms on the device "
+            f"({event_ms:.4f} ms per wrapper call by CUDA events), {100 * bound / ms:.1f}% "
+            f"of its bound {bound:.4f} ms ({bound_by}), plain {plain_ms:.3f} ms, library "
+            + (f"flex_attention with a segment{'' if window is None else ' + band'} block "
+               f"mask {library_ms:.4f} ms ({library_err:.2e} from the plain version)"
+               if library_ms is not None else f"not measured ({library_note})"))
+        kinds.append(dict(kind=kind, window=window, tokens=t, segments=VARLEN_ROWS,
+                          max_rel_err=err, ms=ms, event_ms=event_ms, plain_ms=plain_ms,
+                          bound_ms=bound, bound_by=bound_by, roofline_pct=100 * bound / ms,
+                          library_ms=library_ms, library_rel_err=library_err,
+                          library_note=library_note))
+    head = kinds[0]
+    return dict(max_rel_err=max(x["max_rel_err"] for x in kinds), ms=head["ms"],
+                event_ms=head["event_ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                library_ms=head["library_ms"],
+                library="torch.compile(flex_attention) with a segment (+ band) block mask",
+                shape=[t, h, d], kinds=kinds)
 
 
 def make_corpus(n, dim, n_queries, seed=0):
@@ -2333,8 +2468,9 @@ def modernbert_check_tokens(vocab: int):
 def provider_chunk_probe(enc: TextEncoder, slen: int) -> dict:
     """One encode at the recompute provider's chunk (batch size x
     EMBED_CHUNK_BATCHES rows of `slen` tokens): the device memory it adds at
-    its peak, its attention kernels (which backend
-    scaled_dot_product_attention took) and its largest kernels."""
+    its peak, its attention kernels (V1's on ModernBERT's packed route, or
+    the backend scaled_dot_product_attention took) and its largest
+    kernels."""
     rows = enc.config.batch_size * EMBED_CHUNK_BATCHES
     gen = torch.Generator(device="cuda").manual_seed(0)
     ids = torch.randint(1, enc.model_config.vocab_size, (rows, slen), generator=gen,
@@ -2351,7 +2487,7 @@ def provider_chunk_probe(enc: TextEncoder, slen: int) -> dict:
                     key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     attention = [dict(kernel=e.key[:120], ms=e.self_device_time_total / 1e3, count=e.count)
-                 for e in events if re.search(r"attention|fmha|flash|cudnn|softmax", e.key, re.I)]
+                 for e in events if re.search(r"varlen_attn|attention|fmha|flash|cudnn|softmax", e.key, re.I)]
     top = [dict(kernel=e.key[:90], ms=e.self_device_time_total / 1e3, count=e.count)
            for e in events[:8]]
     log(f"  one encode at the provider's chunk, {rows} x {slen} tokens (every other row "
@@ -2416,9 +2552,27 @@ def phase_modernbert_service(root: pathlib.Path) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def counting_packed_layers():
+    """Counts, in the list it yields, the packed forwards ModernBERT runs on
+    the card and their layers (one V1 launch each)."""
+    real = ModernBertModel.hidden_packed
+    seen = [0, 0]
+
+    def hidden_packed(self, ids, segs):
+        if ids.is_cuda and ids.numel():
+            seen[0] += 1
+            seen[1] += len(self.layers)
+        return real(self, ids, segs)
+
+    with unittest.mock.patch.object(ModernBertModel, "hidden_packed", hidden_packed):
+        yield seen
+
+
 def phase_modernbert(root: pathlib.Path) -> dict:
     """Phase 13: ModernBERT on the card through the bench, config 1 and the
-    service; none of the three launches a kernel of the port."""
+    service; each of the three runs the packed forward, launches V1 once a
+    layer of each forward (22 a forward) and no other kernel of the port."""
     out = {}
     for label, part, run in (
             ("13a", "encoder", phase_modernbert_encoder),
@@ -2427,11 +2581,19 @@ def phase_modernbert(root: pathlib.Path) -> dict:
             ("13c", "service", lambda: phase_modernbert_service(root))):
         t0 = time.perf_counter()
         log(f"  {label}: {part}")
-        out[part] = run()
+        with counting_packed_layers() as seen:
+            out[part] = run()
         torch.cuda.empty_cache()
-        if any(out[part]["launches"].values()):
-            raise AssertionError(f"phase {label}: a kernel launched: {out[part]['launches']}")
-        log(f"  {label}: {time.perf_counter() - t0:.1f} s, no kernel launched")
+        launches = out[part]["launches"]
+        forwards, layers = seen
+        others = {name: n for name, n in launches.items() if name != "varlen_attention" and n}
+        if others or forwards == 0 or launches["varlen_attention"] != layers:
+            raise AssertionError(f"phase {label}: {forwards} packed forwards of {layers} "
+                                 f"layers on the card, kernel launches {launches}")
+        out[part]["packed_forwards"] = forwards
+        log(f"  {label}: {time.perf_counter() - t0:.1f} s, {forwards} packed forwards, "
+            f"{layers} varlen_attention launches ({layers / forwards:.0f} a forward), no "
+            f"other kernel launched")
     return out
 
 
@@ -2498,6 +2660,7 @@ def main() -> int:
     k3s = phase_adc_smallest(sms, clock_hz)
     k4a, k4b = phase_pairwise()
     k5 = phase_row_gather()
+    v1 = phase_varlen()
     topk = phase_smallest_k()
     torch.cuda.empty_cache()
     log(f"  phases 1-2: {time.perf_counter() - t_start:.1f} s")
@@ -2572,10 +2735,12 @@ def main() -> int:
              **{f"modernbert_{part}": out for part, out in modernbert.items()}}
     kernels = []
     for name, fig in (("hop_merge", k1), ("gated_adc", k2), ("adc_scan", k3),
-                      ("adc_scan_smallest", k3s), ("pairwise_l2", k4a), ("pairwise_neg_dot", k4b), ("row_gather", k5)):
+                      ("adc_scan_smallest", k3s), ("pairwise_l2", k4a), ("pairwise_neg_dot", k4b), ("row_gather", k5),
+                      ("varlen_attention", v1)):
         _, source, replaces, _ = KERNELS[name]
         by_path = {path: out["launches"][name] for path, out in paths.items()}
-        kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
+        route = "cuda" if source.endswith(".cu") else "triton"
+        kernels.append(dict(name=name, route=route, source=source, replaces=replaces,
                             launches=sum(by_path.values()), launches_by_path=by_path, **fig))
     print(json.dumps(dict(paths, smallest_k=topk, card=card,
                           seconds=time.perf_counter() - t_start)), flush=True)

@@ -6,8 +6,12 @@ Port of islands_tpu/models/encoder.py: model presets with dimensions,
 `HashEmbedder` is the device-free stand-in embedder.
 
 `tokenize` pads to the reference's length buckets, so ids and masks equal
-the reference's; `embed_texts` groups texts by bucket. Runs on CUDA unless
-`device="cpu"`.
+the reference's; `embed_texts` groups texts by bucket. A ModernBERT encoder
+takes texts up to its `max_position_embeddings` tokens (8,192 for
+modernbert-base) and runs them unpadded: `embed_texts` lays their tokens
+end to end on the host for `modernbert.forward_packed`, and `bert.encode`
+(so `encode_tokens`) packs each padded row's valid tokens; `tokenize` pads
+to the batch's longest text, not to a bucket. Runs on CUDA unless `device="cpu"`.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import hashlib
+import itertools
 import json
 from pathlib import Path
 
@@ -130,9 +135,11 @@ class HfTokenizer:
 
 @dataclasses.dataclass
 class EncoderConfig:
-    """Encoding knobs: batch size, max length, normalization, buckets."""
+    """Encoding knobs: batch size, max length, normalization, buckets.
+    `max_seq_length` None is the architecture's own limit: 256 tokens (the
+    largest bucket) for BERT, `max_position_embeddings` for ModernBERT."""
 
-    max_seq_length: int = 256
+    max_seq_length: int | None = None
     batch_size: int = 64
     normalize: bool = True
     buckets: tuple[int, ...] = DEFAULT_BUCKETS
@@ -155,6 +162,17 @@ def build_model(params: dict, model_config, device=None) -> torch.nn.Module:
     return convert.bert_from_numpy(params, model_config, device)
 
 
+def _pad(seqs: list[list[int]], length: int) -> tuple[np.ndarray, np.ndarray]:
+    """Token lists cut or zero-padded to `length` -> (ids, mask) int32 [n, length]."""
+    ids = np.zeros((len(seqs), length), dtype=np.int32)
+    mask = np.zeros((len(seqs), length), dtype=np.int32)
+    for i, sq in enumerate(seqs):
+        sq = sq[:length]
+        ids[i, : len(sq)] = sq
+        mask[i, : len(sq)] = 1
+    return ids, mask
+
+
 class TextEncoder:
     """Batched sentence encoder.
 
@@ -173,9 +191,12 @@ class TextEncoder:
         self.model = build_model(params, model_config, self.device)
         self.tokenizer = tokenizer or SimpleTokenizer(model_config.vocab_size)
         config = config or EncoderConfig()
+        limit = config.max_seq_length
+        if limit is None:
+            limit = model_config.max_position_embeddings if self.packed else DEFAULT_BUCKETS[-1]
         self.config = dataclasses.replace(
             config,
-            max_seq_length=min(config.max_seq_length, model_config.max_position_embeddings),
+            max_seq_length=min(limit, model_config.max_position_embeddings),
             buckets=tuple(b for b in config.buckets
                           if b <= model_config.max_position_embeddings)
             or (model_config.max_position_embeddings,),
@@ -225,6 +246,11 @@ class TextEncoder:
         """Embedding dimension: the architecture's hidden size."""
         return self.model_config.hidden_size
 
+    @property
+    def packed(self) -> bool:
+        """True where the model runs unpadded (ModernBERT)."""
+        return self.architecture is ModelArchitecture.MODERNBERT
+
     # -- tokenization ------------------------------------------------------
 
     def _bucket_for(self, length: int) -> int:
@@ -235,18 +261,12 @@ class TextEncoder:
 
     def tokenize(self, texts: list[str],
                  pad_to: int | None = None) -> tuple[np.ndarray, np.ndarray]:
-        """Encode and pad a batch to a bucket length (or `pad_to`). Returns
-        (ids [B, L], mask [B, L]) int32 numpy."""
+        """Encode and pad a batch to a bucket length (a packed encoder: the
+        longest text), or to `pad_to`. Returns (ids [B, L], mask [B, L])
+        int32 numpy."""
         seqs = [self.tokenizer.encode(t, self.config.max_seq_length) for t in texts]
         max_len = max((len(s) for s in seqs), default=1)
-        L = pad_to or self._bucket_for(max_len)
-        ids = np.zeros((len(texts), L), dtype=np.int32)
-        mask = np.zeros((len(texts), L), dtype=np.int32)
-        for i, s in enumerate(seqs):
-            s = s[:L]
-            ids[i, : len(s)] = s
-            mask[i, : len(s)] = 1
-        return ids, mask
+        return _pad(seqs, pad_to or (max_len if self.packed else self._bucket_for(max_len)))
 
     # -- encoding ----------------------------------------------------------
 
@@ -259,23 +279,41 @@ class TextEncoder:
 
     def embed_texts(self, texts: list[str]) -> np.ndarray:
         """Batch-encode texts -> [n, dim] float32. Batches are grouped by
-        length bucket, then put back in input order."""
+        length bucket, then put back in input order; a packed encoder packs
+        them instead (`_embed_packed`)."""
         if not texts:
             return np.zeros((0, self.dimension), dtype=np.float32)
         seqs = [self.tokenizer.encode(t, self.config.max_seq_length) for t in texts]
+        if self.packed:
+            return self._embed_packed(seqs)
         order = sorted(range(len(texts)), key=lambda i: len(seqs[i]))
         out = np.zeros((len(texts), self.dimension), dtype=np.float32)
         bs = self.config.batch_size
         for s in range(0, len(order), bs):
             idxs = order[s : s + bs]
             bucket = self._bucket_for(max(len(seqs[i]) for i in idxs))
-            ids = np.zeros((len(idxs), bucket), dtype=np.int32)
-            mask = np.zeros((len(idxs), bucket), dtype=np.int32)
-            for row, i in enumerate(idxs):
-                sq = seqs[i][:bucket]
-                ids[row, : len(sq)] = sq
-                mask[row, : len(sq)] = 1
+            ids, mask = _pad([seqs[i] for i in idxs], bucket)
             out[idxs] = self.encode_tokens(ids, mask).cpu().numpy()
+        return out
+
+    def _embed_packed(self, seqs: list[list[int]]) -> np.ndarray:
+        """Token lists -> [n, dim] float32 through the packed forward: each
+        run of whole texts of at most `modernbert.PACK_TOKENS` tokens is
+        laid end to end on the host and sent to the device as one flat
+        [tokens] table (traced as "encoder.pack"), never a padded one."""
+        lens = np.array([len(sq) for sq in seqs], dtype=np.int64)
+        out = np.zeros((len(seqs), self.dimension), dtype=np.float32)
+        for s, e in modernbert_mod.token_chunks(lens):
+            with region("encoder.pack"):
+                flat = np.fromiter(itertools.chain.from_iterable(seqs[s:e]), dtype=np.int32,
+                                   count=int(lens[s:e].sum()))
+                ids = to_device(flat, self.device, torch.int32)
+                segs = modernbert_mod.Segments.from_lengths(lens[s:e], self.device)
+            with region("encoder.forward"):
+                pooled = modernbert_mod.forward_packed(self.model, ids, segs)
+            if self.config.normalize:
+                pooled = torch.nn.functional.normalize(pooled, dim=-1, eps=1e-12)
+            out[s:e] = pooled.cpu().numpy()
         return out
 
     def embed_text(self, text: str) -> np.ndarray:

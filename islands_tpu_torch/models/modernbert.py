@@ -11,6 +11,22 @@ Port of islands_tpu/models/modernbert.py (answerdotai/ModernBERT):
 - a gated MLP (GeGLU): Wi projects to 2 * intermediate, gelu(input) * gate;
 - a final LayerNorm after the stack.
 
+Two forwards. `ModernBertModel.forward` takes a padded [B, L] batch and
+computes every layer as dense attention with a [B, 1, L, L] band bias for
+the local layers, as the reference does; the tests hold it against the
+JAX package. `forward_packed` takes the batch unpadded, as the published
+model runs ("unpadding"): the valid tokens of n segments end to end with
+their offsets, RoPE positions restarting in each segment, each local layer
+attending within its band inside its own segment and each global layer to
+its whole segment through the varlen attention kernel
+(`ops/varlen_attention`), then the final norm and a mean over each
+segment's tokens. `bert.encode` on a ModernBERT model, and so the text
+encoder and the recompute provider, run `forward_packed` (via
+`ModernBertModel.pooled`); its always-on `forward_packed.tokens_encoded`
+counts the tokens it has encoded, and under tracing it counts
+"encoder.tokens" and "encoder.segments" and `pack_rows` opens
+"encoder.pack".
+
 The reference keeps one `lax.scan` body by selecting the global or local
 tables with per-layer float flags; here each layer knows its kind. Numerics
 are the reference's: matmul operands in the compute dtype, RoPE tables and
@@ -36,9 +52,17 @@ from islands_tpu_torch.models.bert import (
     padding_bias,
     read_checkpoint,
 )
+from islands_tpu_torch.ops.varlen_attention import Segments, varlen_attention
+from islands_tpu_torch.utils.tracing import count, region
 
-__all__ = ["ModernBertConfig", "ModernBertModel", "encode", "init_params",
-           "load_hf_checkpoint", "mean_pool_normalize", "rope_tables", "rotate_half"]
+__all__ = ["ModernBertConfig", "ModernBertModel", "Segments", "encode", "forward_packed",
+           "init_params", "load_hf_checkpoint", "mean_pool_normalize", "pack_rows",
+           "rope_tables", "rotate_half", "token_chunks"]
+
+#: Most tokens one packed forward takes (262,144: the tokens of the BERT
+#: provider's 4,096-row chunk at 64 tokens); longer work is cut into chunks
+#: of whole segments (`token_chunks`).
+PACK_TOKENS = 1 << 18
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,10 +194,26 @@ class ModernBertLayer(nn.Module):
         v = qkv[:, :, 2].transpose(1, 2)
         ctx = F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
         x = x + self.wo(ctx.transpose(1, 2).reshape(b, slen, h))
-        wi = self.wi(layer_norm(x, self.mlp_norm)).float()
+        return self._mlp(x)
+
+    def _mlp(self, x):
+        wi = self.wi(layer_norm(x, self.mlp_norm))
         inner = wi.shape[-1] // 2
-        gated = (F.gelu(wi[..., :inner]) * wi[..., inner:]).to(x.dtype)
+        # GeGLU in float32: the gate half widens inside the product, exactly.
+        gated = (F.gelu(wi[..., :inner].float()) * wi[..., inner:]).to(x.dtype)
         return x + self.mlp_wo(gated)
+
+    def forward_packed(self, x, segs: Segments, rope, window: int):
+        """x [T, H] packed; rope the (cos, sin) tables [P, D]; `window` the
+        local layers' half-width (a global layer ignores it)."""
+        t, h = x.shape
+        nh = self.heads
+        xn = x if self.attn_norm is None else layer_norm(x, self.attn_norm)
+        qkv = self.wqkv(xn).view(t, 3, nh, h // nh)
+        ctx = varlen_attention(qkv[:, 0], qkv[:, 1], qkv[:, 2], segs,
+                               None if self.is_global else window, rope=rope)
+        x = x + self.wo(ctx.view(t, h))
+        return self._mlp(x)
 
 
 class ModernBertModel(nn.Module):
@@ -215,6 +255,99 @@ class ModernBertModel(nn.Module):
             cos, sin = rope[layer.is_global]
             x = layer(x, cos, sin, global_bias if layer.is_global else local_bias)
         return layer_norm(x.float(), self.final_norm)
+
+    def hidden_packed(self, ids: torch.Tensor, segs: Segments) -> torch.Tensor:
+        """Packed ids [T] of the segments `segs` -> final hidden states
+        [T, H] float32 (after the final norm)."""
+        cfg = self.config
+        dev = ids.device
+        n_pos = max(cfg.max_position_embeddings, segs.max_len)
+        rope = {g: tuple(t.view(n_pos, -1) for t in self._tables(n_pos, theta, dev))
+                for g, theta in ((True, cfg.global_rope_theta), (False, cfg.local_rope_theta))}
+        x = layer_norm(self.word(ids.long()), self.emb_norm).to(self.dtype)
+        for layer in self.layers:
+            x = layer.forward_packed(x, segs, rope[layer.is_global], cfg.local_attention // 2)
+        return layer_norm(x.float(), self.final_norm)
+
+    def pooled(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+        """A padded batch [B, L] through `forward_packed`: each row's valid
+        tokens (its mask is a prefix of ones) packed end to end -> mean
+        pooled rows [B, H] float32 (not normalised)."""
+        with region("encoder.pack"):
+            lens = attention_mask.sum(dim=1).cpu().numpy()
+        rows = torch.arange(input_ids.shape[0], device=input_ids.device)
+        return self.pooled_rows(input_ids, rows, lens)
+
+    def pooled_rows(self, table: torch.Tensor, rows: torch.Tensor, lengths) -> torch.Tensor:
+        """Rows `rows` of a padded token table [N, L], their first
+        `lengths[j]` ids each (host integers), packed and run in chunks of
+        whole rows of at most PACK_TOKENS tokens -> mean pooled [n, H]
+        float32 (not normalised)."""
+        out = torch.empty((rows.numel(), self.config.hidden_size), dtype=torch.float32,
+                          device=table.device)
+        for s, e in token_chunks(lengths):
+            ids, segs = pack_rows(table, rows[s:e], lengths[s:e])
+            out[s:e] = forward_packed(self, ids, segs)
+        return out
+
+
+def token_chunks(lengths, budget: int = PACK_TOKENS) -> list[tuple[int, int]]:
+    """[start, end) runs of consecutive segments whose tokens sum to at most
+    `budget` (a longer segment runs alone)."""
+    out, s, acc = [], 0, 0
+    for i, n in enumerate(np.asarray(lengths).tolist()):
+        if acc and acc + n > budget:
+            out.append((s, i))
+            s, acc = i, 0
+        acc += n
+    if s < len(lengths):
+        out.append((s, len(lengths)))
+    return out
+
+
+def pack_rows(table: torch.Tensor, rows: torch.Tensor, lengths) -> tuple[torch.Tensor, Segments]:
+    """The first `lengths[j]` ids of `table[rows[j]]` ([N, L] padded rows,
+    `rows` int on its device, `lengths` on the host), end to end -> (ids
+    [T] int32, their Segments). Reads nothing back from the device. Traced
+    as the region "encoder.pack"."""
+    with region("encoder.pack"):
+        segs = Segments.from_lengths(lengths, table.device)
+        slen = table.shape[1]
+        flat = rows.long()[segs.segment_ids] * slen + segs.positions
+        return table.reshape(-1)[flat], segs
+
+
+def segment_mean(hidden: torch.Tensor, segs: Segments) -> torch.Tensor:
+    """Mean of each segment's rows of [T, H] -> [n, H] float32 (an empty
+    segment gives zeros). The rows are gathered into a zero-padded
+    [n, longest, H] block and summed along it: one fixed order, so the same
+    inputs give the same bits."""
+    t, h = hidden.shape
+    n = segs.count
+    if n == 0:
+        return hidden.new_zeros((0, h))
+    slots = torch.full((n, max(segs.max_len, 1)), t, dtype=torch.int64, device=hidden.device)
+    slots[segs.segment_ids, segs.positions] = torch.arange(t, device=hidden.device)
+    rows = torch.cat([hidden, hidden.new_zeros((1, h))])[slots]
+    lens = torch.from_numpy(np.maximum(segs.lengths, 1)).to(hidden.device, non_blocking=True)
+    return rows.sum(dim=1) / lens[:, None]
+
+
+@torch.inference_mode()
+def forward_packed(model: "ModernBertModel", ids: torch.Tensor, segs: Segments) -> torch.Tensor:
+    """ModernBERT on packed ids [T] of the segments `segs` -> the mean of
+    each segment's final hidden states [n, H] float32 (not normalised).
+    Counts its tokens in `forward_packed.tokens_encoded` and, under
+    tracing, "encoder.tokens" and "encoder.segments"."""
+    if segs.tokens != ids.shape[0]:
+        raise ValueError(f"segments hold {segs.tokens} tokens, ids has {ids.shape[0]}")
+    count("encoder.tokens", segs.tokens)
+    count("encoder.segments", segs.count)
+    forward_packed.tokens_encoded += segs.tokens
+    return segment_mean(model.hidden_packed(ids, segs), segs)
+
+
+forward_packed.tokens_encoded = 0
 
 
 def load_hf_checkpoint(path: str | Path) -> tuple[dict, ModernBertConfig]:

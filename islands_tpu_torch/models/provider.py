@@ -8,15 +8,25 @@ The reference's provider always runs the BERT forward, whatever the
 encoder's architecture, so a provider over a ModernBERT encoder fails there.
 This one runs the encoder's own module (models/bert.encode takes either).
 
+Over a ModernBERT encoder (`TextEncoder.packed`) the rows are not padded:
+`embed` reads the gathered rows' lengths to the host once, and
+`ModernBertModel.pooled_rows` packs their valid tokens end to end
+(`modernbert.pack_rows`) and runs `modernbert.forward_packed` on chunks of
+whole rows of at most `modernbert.PACK_TOKENS` tokens. A BERT encoder
+keeps its padded rows and its chunks of EMBED_CHUNK_BATCHES batches.
+`with_center`, and so the build, take the same route as `embed`.
+
 Tracing (utils/tracing): `embed` is the region "provider.embed" and counts
 "provider.rows", the rows it encodes; each encoder call inside it is a
-region "encoder.forward".
+region "encoder.forward"; on the packed route the length read, and inside
+"encoder.forward" each chunk's packing, are regions "encoder.pack".
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from islands_tpu_torch.device import to_device
 from islands_tpu_torch.models.bert import encode
@@ -49,11 +59,15 @@ class EncoderEmbeddingProvider:
                        else torch.zeros((encoder.dimension,), dtype=torch.float32, device=dev))
         self._centered = center is not None
         self._normalize = encoder.config.normalize and not self._centered
+        # Packed route: each row's valid tokens (its mask is a prefix of ones).
+        self._lengths = self.token_mask.sum(dim=1) if encoder.packed else None
 
     def _encode_rows(self, ids: torch.Tensor, normalize: bool) -> torch.Tensor:
         """Pooled outputs [n, d] of the token rows `ids` (clamped into
         range), in chunks of the encoder's batch size x EMBED_CHUNK_BATCHES."""
         safe = torch.clamp(ids.reshape(-1).long(), 0, max(self._n, 1) - 1)
+        if self._lengths is not None:
+            return self._encode_packed(safe, normalize)
         chunk = self.encoder.config.batch_size * EMBED_CHUNK_BATCHES
         out = torch.empty((safe.numel(), self.dimension), dtype=torch.float32,
                           device=self.device)
@@ -63,6 +77,15 @@ class EncoderEmbeddingProvider:
                 out[s:s + chunk] = encode(self.encoder.model, self.token_ids[rows],
                                           self.token_mask[rows], normalize)
         return out
+
+    def _encode_packed(self, rows: torch.Tensor, normalize: bool) -> torch.Tensor:
+        """Pooled outputs [n, d] of the token rows `rows` (in range), their
+        valid tokens packed, in chunks of at most PACK_TOKENS tokens."""
+        with region("encoder.pack"):
+            lens = self._lengths[rows].cpu().numpy()
+        with region("encoder.forward"):
+            pooled = self.encoder.model.pooled_rows(self.token_ids, rows, lens)
+        return F.normalize(pooled, dim=-1, eps=1e-12) if normalize else pooled
 
     def embed(self, ids: torch.Tensor) -> torch.Tensor:
         """ids [...] -> embeddings [..., d] float32 on the provider's device.
@@ -90,7 +113,7 @@ class EncoderEmbeddingProvider:
     @staticmethod
     def from_texts(encoder: TextEncoder, texts: list[str],
                    pad_to: int | None = None) -> "EncoderEmbeddingProvider":
-        L = pad_to or encoder.config.max_seq_length
+        L = pad_to or (None if encoder.packed else encoder.config.max_seq_length)
         ids, mask = encoder.tokenize(texts, pad_to=L)
         return EncoderEmbeddingProvider(encoder, ids, mask)
 
