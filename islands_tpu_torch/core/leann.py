@@ -34,6 +34,7 @@ from islands_tpu_torch.core.pq import (
     pq_scan_smallest,
 )
 from islands_tpu_torch.core.search import (
+    HopGraphCache,
     batched_search,
     batched_sketch_gated_query,
     batched_two_level_search,
@@ -78,6 +79,9 @@ class LeannIndex:
         # derived from (graph, codes) and cached on the identity of both.
         self._nbr_codes: torch.Tensor | None = None
         self._nbr_codes_key = None
+        # On CUDA the sketch gate replays its hops as CUDA graphs, two a hop
+        # around the provider's eager `embed`.
+        self._hop_graphs = HopGraphCache() if self.device.type == "cuda" else None
 
     # -- introspection -----------------------------------------------------
 
@@ -124,8 +128,7 @@ class LeannIndex:
 
     def _build(self, x: torch.Tensor, with_pq: PQConfig | None) -> None:
         self.graph, self.sketch = build_index_with_sketch(x, self.config, device=self.device)
-        self._tl_routing = {}
-        self._init_routing()
+        self._graph_replaced()
         if with_pq is not None:
             self._train_pq(x, with_pq)
 
@@ -164,8 +167,7 @@ class LeannIndex:
             self.sketch = proj_ops.build_sketch_index(
                 x_all, self.graph.neighbors, proj_dims=self.sketch.proj_dims,
                 seed=cfg.seed, w=self.sketch.w)
-        self._tl_routing = {}
-        self._init_routing()
+        self._graph_replaced()
         if self.pq is not None:
             self.pq_codes = self.pq.encode(x_all)
         return self
@@ -191,6 +193,15 @@ class LeannIndex:
             self._tl_routing[size] = torch.as_tensor(
                 rng.integers(0, n, size=size), dtype=torch.int32, device=self.device)
         return self._tl_routing[size]
+
+    def _graph_replaced(self) -> None:
+        """After a build or an extend: new routing ids, and a new cache of
+        hop graphs (the old graphs hold the old neighbours' and sketch's
+        pointers), with the same capture."""
+        self._tl_routing = {}
+        self._init_routing()
+        if self._hop_graphs is not None:
+            self._hop_graphs = HopGraphCache(self._hop_graphs.capture)
 
     def _init_routing(self) -> None:
         """Routing ids of the sketch gate (used by `search`)."""
@@ -227,9 +238,17 @@ class LeannIndex:
         `max_iters` default to the config's `promote_width` and
         `max_search_iters`, then to the gate's own formula.
 
+        On a CUDA index the sketch gate replays each hop as two CUDA graphs,
+        captured on the first call of a shape and kept by the index: the
+        provider's `embed` runs eagerly between them, once a hop, as on the
+        eager route, so its host reads and the caller's wrappers see every
+        hop (`core/search._SplitHopGraph`). Routing, the entry scores and
+        the end stay eager; gate "none" runs eagerly throughout.
+
         Traced (utils/tracing) as the root region "leann.search"; the sketch
         gate counts "search.exact_rows", the rows it scored exactly (the sum
-        of its per-query counts, read with the recompute fraction)."""
+        of its per-query counts, read with the recompute fraction), and
+        "search.hop.graphed", its replayed hops."""
         graph = self._require_graph()
         q, single = self._queries(queries)
         if self.is_empty:
@@ -260,7 +279,7 @@ class LeannIndex:
                 self.sketch.nbr_sketch, self.sketch.node_sketch, self._routing,
                 exact_scorer=scorer, metric=cfg.metric, dim=int(qp.shape[1]), ef=ef, k=k,
                 aq_width=max(ef, 64), promote_width=promote, expand_width=expand_width,
-                max_iters=max_iters)
+                max_iters=max_iters, hop_graphs=self._hop_graphs)
             n_exact = n_exact.cpu()  # the search's one read of its counts
             count("search.exact_rows", int(n_exact.sum()))
             self.last_recompute_fraction = (float(n_exact.float().mean())

@@ -30,8 +30,15 @@ region "search.hop" holding its "search.hop.sync" read and counting
 "search.hops" once per body run; the gated loops split routing
 ("search.route"), a hop's steps ("search.hop.expand", "search.hop.merge",
 "search.hop.rescore") and the end ("search.final"); a StoredSearcher query
-is the root region "stored.search". A hop replayed as a CUDA graph counts
-"search.hop.graphed" too; its step regions open only while it is captured.
+is the root region "stored.search".
+
+On CUDA the sketch-gated query's freeze route replays its hops as CUDA
+graphs (`HopGraphCache`, captured on the first call of a shape). Over stored
+rows (StoredSearcher) a hop is one graph, `_HopGraph`. Over a provider
+(LeannIndex.search) it is two, `_SplitHopGraph`: the provider's `embed`
+runs eagerly between them, once a hop, inside "search.hop.rescore". A
+replayed hop counts "search.hop.graphed" too; its graphed steps' regions
+open only while they are captured.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from __future__ import annotations
 import collections
 import functools
 import threading
+import typing
 
 import numpy as np
 import torch
@@ -90,12 +98,12 @@ def make_recompute_scorer(metric: DistanceMetric):
     return functools.partial(recompute_scorer, metric=metric)
 
 
-def _freeze_step(cond, body, state: tuple, active: torch.Tensor, last: bool = False):
-    """One hop of the freeze route: the body on the whole batch, rows whose
-    `active` mask is false keeping their old state (`torch.where(active,
-    new, old)`); then, unless `last`, the next hop's mask `cond(state)` and
-    its `any()`, both left on the device. -> (state, active, flag)."""
-    new = body(state)
+def _freeze(cond, new: tuple, state: tuple, active: torch.Tensor, last: bool = False):
+    """The end of one hop of the freeze route: `new`, the body's state, on
+    the rows whose `active` mask is true, the others keeping their old state
+    (`torch.where(active, new, old)`); then, unless `last`, the next hop's
+    mask `cond(state)` and its `any()`, both left on the device. -> (state,
+    active, flag)."""
     state = tuple(torch.where(active.view(-1, *([1] * (o.dim() - 1))), nw, o)
                   for nw, o in zip(new, state))
     if last:
@@ -116,8 +124,8 @@ class _EagerHops:
         return self.active.any()
 
     def step(self, last: bool):
-        self.state, self.active, flag = _freeze_step(self.cond, self.body, self.state,
-                                                     self.active, last)
+        self.state, self.active, flag = _freeze(self.cond, self.body(self.state), self.state,
+                                                self.active, last)
         return flag
 
     def result(self) -> tuple:
@@ -132,10 +140,11 @@ def _run_hops(cond, body, state: tuple, max_iters: int, static_iters: bool, hops
     or after `max_iters` hops.
 
     The host reads one flag a pass: `cond`'s `any()` of the first state, then
-    the flag each hop leaves for the next (`_freeze_step`), none after the
-    last allowed hop. `hops` runs the hops (`begin(state) -> flag`,
-    `step(last) -> flag`, `result()`); by default `_EagerHops`, a
-    `_HopGraph` replays each hop as one CUDA graph.
+    the flag each hop leaves for the next (`_freeze`), none after the last
+    allowed hop. `hops` runs the hops (`begin(state) -> flag`,
+    `step(last) -> flag`, `result()`); by default `_EagerHops`; a
+    `_HopGraph` replays each hop as one CUDA graph, a `_SplitHopGraph` as
+    two around the provider's eager exact scores.
 
     `static_iters=True` is the reference's fixed-trip `lax.scan`: exactly
     `max_iters` hops with no freeze (the body is a fixed point on converged
@@ -428,9 +437,27 @@ def _rescore_into_pool(score, pool_d, pool_code, ids, valid, n_exact):
     return pool_d, pool_code, n_exact + valid.sum(dim=1, dtype=torch.int32)
 
 
+class _GatedHop(typing.NamedTuple):
+    """The sketch-gated query loop's functions over queries qp, qs. A hop
+    is `pre`, `exact`, `post`: `pre` pops, hops over the neighbour
+    sketches, scores the discoveries by their calibrated sketch distances
+    and updates the AQ -> (pool_code, ids, valid, aq_d, aq_i), the
+    promoted ids [B, P] set to 0 where not valid; `exact` scores them;
+    `post` merges the exact distances d [B, P] into the pool and counts
+    them in n_exact -> the new state. `body` runs the three in turn."""
+    cond: typing.Callable
+    exact: typing.Callable
+    pre: typing.Callable
+    post: typing.Callable
+
+    def body(self, state):
+        mid = self.pre(state)
+        with region("search.hop.rescore"):
+            return self.post(state, mid, self.exact(mid[1], mid[2]))
+
+
 def _gated_hop_fns(qp, qs, exact_ctx, scale, neighbors, nbr_sketch, *, exact_scorer,
-                   metric, dim, expand_width, promote_width, hop_merge_mode):
-    """The sketch-gated query loop's (cond, body, exact) over queries qp, qs."""
+                   metric, dim, expand_width, promote_width, hop_merge_mode) -> _GatedHop:
     n = neighbors.shape[0]
 
     def cond(state):
@@ -446,8 +473,8 @@ def _gated_hop_fns(qp, qs, exact_ctx, scale, neighbors, nbr_sketch, *, exact_sco
     def exact(ids, valid):
         return exact_scorer(exact_ctx, qp, ids, valid)
 
-    def body(state):
-        pool_d, pool_code, aq_d, aq_i, n_exact = state
+    def pre(state):
+        pool_d, pool_code, aq_d, aq_i, _ = state
         with region("search.hop.expand"):
             pool_code, sel_ids, sel_valid = _pop(pool_d, pool_code, expand_width)
             nbr_ids, nbr_valid, raw = _sketch_hop(neighbors, nbr_sketch, sel_ids, sel_valid)
@@ -458,12 +485,16 @@ def _gated_hop_fns(qp, qs, exact_ctx, scale, neighbors, nbr_sketch, *, exact_sco
             prom_d, prom_ids, aq_d, aq_i = _aq_update(nbr_ids, d_approx, aq_d, aq_i,
                                                       pool_code, n, promote_width,
                                                       hop_merge_mode)
-        with region("search.hop.rescore"):
-            pool_d, pool_code, n_exact = _rescore_into_pool(
-                exact, pool_d, pool_code, prom_ids, prom_d < _INF, n_exact)
-        return pool_d, pool_code, aq_d, aq_i, n_exact
+            valid = prom_d < _INF
+        return pool_code, torch.where(valid, prom_ids, 0), valid, aq_d, aq_i
 
-    return cond, body, exact
+    def post(state, mid, d):
+        pool_d, _, _, _, n_exact = state
+        pool_code, ids, valid, aq_d, aq_i = mid
+        pool_d, pool_code = _merge_into_pool(pool_d, pool_code, d, ids, valid)
+        return pool_d, pool_code, aq_d, aq_i, n_exact + valid.sum(dim=1, dtype=torch.int32)
+
+    return _GatedHop(cond, exact, pre, post)
 
 
 def batched_sketch_gated_query(qp, qs, exact_ctx, scale, neighbors, nbr_sketch,
@@ -481,8 +512,14 @@ def batched_sketch_gated_query(qp, qs, exact_ctx, scale, neighbors, nbr_sketch,
     recompute fraction. Returns (dists [B, k], ids [B, k], n_exact [B]).
 
     With a `HopGraphCache` (`hop_graphs`) and a freeze route over a
-    non-empty batch, each hop replays one CUDA graph of the same ops
-    (`_HopGraph`); routing and the final rescore stay eager."""
+    non-empty batch, each hop replays captured CUDA graphs of the same ops.
+    Over stored rows (`exact_ctx` a tensor) a hop is one graph
+    (`_HopGraph`). Over a provider (`exact_ctx` a callable, its `embed`) it
+    is two (`_SplitHopGraph`): the pop, sketch hop and AQ update, then the
+    merge of the exact scores and the freeze, with the exact scores
+    (`embed`, prep, distance) run eagerly between them once a hop, since a
+    provider may read to the host or be wrapped by the caller. Routing,
+    its entry scores and the final rescore stay eager."""
     b = qp.shape[0]
     n, m = neighbors.shape
     _check_hop_merge(hop_merge_mode, n)
@@ -505,16 +542,17 @@ def batched_sketch_gated_query(qp, qs, exact_ctx, scale, neighbors, nbr_sketch,
                               expand_width=expand_width, promote_width=promote_width,
                               hop_merge_mode=hop_merge_mode)
 
-    cond, body, exact = hop_fns(qp, qs)
+    fns = hop_fns(qp, qs)
     state = (pool_d, pool_code, aq_d, aq_i, n_exact)
     if hop_graphs is not None and not static_iters and b > 0:
         key = (b, ef, aq_width, promote_width, expand_width, hop_merge_mode)
-        graph = hop_graphs.get(key, lambda: _HopGraph(qp, qs, state, hop_fns,
-                                                      hop_graphs.capture))
+        kind = _SplitHopGraph if callable(exact_ctx) else _HopGraph
+        graph = hop_graphs.get(key, lambda: kind(qp, qs, state, hop_fns, hop_graphs.capture))
         with graph.lock:
-            state = _run_hops(cond, body, state, max_iters, False, graph.bind(qp, qs))
+            state = _run_hops(fns.cond, fns.body, state, max_iters, False,
+                              graph.bind(qp, qs, fns.exact))
     else:
-        state = _run_hops(cond, body, state, max_iters, static_iters)
+        state = _run_hops(fns.cond, fns.body, state, max_iters, static_iters)
     pool_d, pool_code, aq_d, aq_i, n_exact = state
     with region("search.final"):
         if final_rescore > 0:
@@ -522,19 +560,20 @@ def batched_sketch_gated_query(qp, qs, exact_ctx, scale, neighbors, nbr_sketch,
             # neighbours a narrow promote_width left in the queue.
             fr = min(final_rescore, aq_width)
             pool_d, pool_code, n_exact = _rescore_into_pool(
-                exact, pool_d, pool_code, aq_i[:, :fr], aq_d[:, :fr] < _INF, n_exact)
+                fns.exact, pool_d, pool_code, aq_i[:, :fr], aq_d[:, :fr] < _INF, n_exact)
         return pool_d[:, :k], (pool_code >> 1)[:, :k], n_exact
 
 
-# Shapes whose hop graph a StoredSearcher keeps; the least recently used
-# goes first.
+# Shapes whose hop graph a StoredSearcher or a LeannIndex keeps; the least
+# recently used goes first.
 HOP_GRAPHS_KEPT = 4
 
 
 def capture_cuda_graph(run, device: torch.device):
     """Warm `run` up once on a side stream (as torch.cuda.graphs asks), then
-    capture it as one CUDA graph on `device`. -> (replay, the tensor `run`
-    returned, which every replay rewrites in place)."""
+    capture it as one CUDA graph on `device`. -> (replay, what `run`
+    returned: a tensor or a tuple of them, which every replay rewrites in
+    place)."""
     with torch.cuda.device(device):
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -554,10 +593,10 @@ def capture_cuda_graph(run, device: torch.device):
 
 
 class HopGraphCache:
-    """A searcher's captured hops, one `_HopGraph` per key (the batch and
-    the loop's widths), at most HOP_GRAPHS_KEPT of them, least recently used
-    out first. `capture(run, device) -> (replay, out)` makes the graph
-    (`capture_cuda_graph`)."""
+    """A searcher's or index's captured hops, one `_HopGraph` or
+    `_SplitHopGraph` per key (the batch and the loop's widths), at most
+    HOP_GRAPHS_KEPT of them, least recently used out first. `capture(run,
+    device) -> (replay, out)` makes a graph (`capture_cuda_graph`)."""
 
     def __init__(self, capture=capture_cuda_graph):
         self.capture = capture
@@ -578,40 +617,54 @@ class HopGraphCache:
 
 
 class _HopGraph:
-    """One hop of the freeze route (`_freeze_step`: body, freeze, the next
-    hop's mask and flag) captured over static buffers: the queries, the five
-    state tensors and the active mask, which each replay rewrites in place.
-    A call binds its queries, `begin` copies its first state in, each `step`
-    replays once; `result` clones the state out, so nothing returned aliases
-    the buffers. Hold `lock` from `bind` to `result`.
+    """One hop of the freeze route (body, `_freeze`, the next hop's mask and
+    flag) captured over static buffers: the queries, the five state tensors
+    and the active mask, which each replay rewrites in place. A call binds
+    its queries, `begin` copies its first state in, each `step` replays
+    once; `result` clones the state out, so nothing returned aliases the
+    buffers. Hold `lock` from `bind` to `result`.
 
     Capture adds nothing to `hop_merge.launches`; each replay adds the fused
     hop-merge launches it holds, as the eager hop would."""
 
     def __init__(self, qp, qs, state: tuple, hop_fns, capture):
-        self.lock = threading.Lock()
-        self.qp, self.qs = qp.clone(), qs.clone()
-        self.state = tuple(t.clone() for t in state)
-        self.cond, body, _ = hop_fns(self.qp, self.qs)
-        self.active = self.cond(self.state)
-        self.k1 = 0
+        body = self._setup(qp, qs, state, hop_fns).body
 
         def run():
             k0 = hop_merge.launches
-            new, active, flag = _freeze_step(self.cond, body, self.state, self.active)
-            for buf, t in zip(self.state, new):
-                buf.copy_(t)
-            self.active.copy_(active)
+            new, active, flag = _freeze(self.cond, body(self.state), self.state, self.active)
+            self._store(new, active)
             self.k1 = hop_merge.launches - k0
             return flag
 
+        self.replay, self.flag = self._capture(capture, run)
+
+    def _setup(self, qp, qs, state: tuple, hop_fns) -> _GatedHop:
+        """The static buffers, and the hop's functions over them."""
+        self.lock = threading.Lock()
+        self.qp, self.qs = qp.clone(), qs.clone()
+        self.state = tuple(t.clone() for t in state)
+        fns = hop_fns(self.qp, self.qs)
+        self.cond = fns.cond
+        self.active = self.cond(self.state)
+        self.k1 = 0
+        return fns
+
+    def _capture(self, capture, run):
         launches = hop_merge.launches
         try:
-            self.replay, self.flag = capture(run, self.qp.device)
+            return capture(run, self.qp.device)
         finally:
             hop_merge.launches = launches
 
-    def bind(self, qp, qs) -> "_HopGraph":
+    def _store(self, new: tuple, active: torch.Tensor) -> None:
+        for buf, t in zip(self.state, new):
+            buf.copy_(t)
+        self.active.copy_(active)
+
+    def bind(self, qp, qs, exact) -> "_HopGraph":
+        """The call's queries into the buffers; `exact`, the call's exact
+        scorer, is captured in the hop already."""
         self.qp.copy_(qp)
         self.qs.copy_(qs)
         return self
@@ -630,6 +683,60 @@ class _HopGraph:
 
     def result(self) -> tuple:
         return tuple(t.clone() for t in self.state)
+
+
+class _SplitHopGraph(_HopGraph):
+    """One hop of the freeze route over a provider, captured as two CUDA
+    graphs around its exact scores. `pre` (pop, sketch hop, AQ update)
+    rewrites its outputs `mid`: the popped pool codes, the promoted ids and
+    their mask, the AQ. `post` reads them and the distances' buffer `d`,
+    merges, freezes, and leaves the next hop's mask and flag.
+
+    Between the two replays `step` runs the call's `exact` (bound with its
+    queries) eagerly, once a hop, and copies its distances into `d`: the
+    provider's `embed` may read to the host, call out, or run inside the
+    caller's spans, none of which a replay would repeat. Capture calls no
+    provider. Otherwise as `_HopGraph`."""
+
+    def __init__(self, qp, qs, state: tuple, hop_fns, capture):
+        fns = self._setup(qp, qs, state, hop_fns)
+        pre, post = fns.pre, fns.post  # neither holds the provider
+        self.exact = None
+
+        def run_pre():
+            k0 = hop_merge.launches
+            mid = pre(self.state)
+            self.k1 = hop_merge.launches - k0
+            return mid
+
+        def run_post():
+            new, active, flag = _freeze(self.cond, post(self.state, self.mid, self.d),
+                                        self.state, self.active)
+            self._store(new, active)
+            return flag
+
+        self.replay_pre, self.mid = self._capture(capture, run_pre)
+        self.d = torch.zeros(self.mid[1].shape, dtype=torch.float32, device=self.qp.device)
+        # post's warm-up reads pre's outputs, which a capture leaves unset.
+        self.replay_pre()
+        self.replay_post, self.flag = self._capture(capture, run_post)
+
+    def bind(self, qp, qs, exact) -> "_SplitHopGraph":
+        self.exact = exact
+        return super().bind(qp, qs, exact)
+
+    def step(self, last: bool) -> torch.Tensor:
+        self.replay_pre()
+        with region("search.hop.rescore"):
+            self.d.copy_(self.exact(self.mid[1], self.mid[2]))
+        self.replay_post()
+        count("search.hop.graphed", 1)
+        hop_merge.launches += self.k1
+        return self.flag
+
+    def result(self) -> tuple:
+        self.exact = None  # the call's provider is not kept past the call
+        return super().result()
 
 
 def route_entries(qs: torch.Tensor, routing_ids: torch.Tensor,

@@ -799,3 +799,109 @@ def test_hop_graph_replays_show_hop_merge_in_the_profiler(graph_searcher, monkey
           if e.device_type == DeviceType.CUDA and "hop_merge" in e.name]
     assert len(k1) == launches
     assert all(e.time_range.end > e.time_range.start for e in k1)
+
+
+# -- LEANN's recompute hop replayed as two graphs around the provider --------
+
+
+class _CountingProvider:
+    """Counts the wrapped provider's `embed` calls, as a caller's wrapper
+    (the benchmark's timed provider) would."""
+
+    def __init__(self, inner):
+        self.inner, self.calls = inner, 0
+
+    def embed(self, ids):
+        self.calls += 1
+        return self.inner.embed(ids)
+
+
+@pytest.fixture(scope="module", params=["bert", "modernbert"])
+def recompute_index(request):
+    """A 2,048-row LEANN index over a small seeded bfloat16 encoder behind the
+    centred provider, on the card, and 16 centred query embeddings. Rows are
+    64-token chunks of 8 to 64 valid tokens drawn around 64 prototypes; the
+    ModernBERT provider packs them, reading their lengths to the host in
+    every `embed`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from islands_tpu_torch.core.leann import LeannIndex
+    from islands_tpu_torch.models.encoder import EncoderConfig, architecture_module
+
+    if request.param == "modernbert":
+        # heads of 32, the kernel's least head size
+        mc = dataclasses.replace(modernbert_mod.ModernBertConfig.tiny_test(), hidden_size=128,
+                                 intermediate_size=192)
+    else:
+        mc = bert_mod.BertConfig.tiny_test()
+    mc = dataclasses.replace(mc, dtype="bfloat16")
+    enc = TextEncoder(architecture_module(mc).init_params(mc, 3), mc,
+                      config=EncoderConfig(normalize=False), device="cuda")
+    rng = np.random.default_rng(23)
+    protos = rng.integers(1, mc.vocab_size, size=(64, 64))
+
+    def rows(n):
+        ids = protos[rng.integers(0, 64, n)]
+        ids = np.where(rng.random(ids.shape) < 0.3, rng.integers(1, mc.vocab_size, ids.shape),
+                       ids)
+        mask = (np.arange(64)[None, :] < rng.integers(8, 65, n)[:, None]).astype(np.int32)
+        return torch.from_numpy((ids * mask).astype(np.int32)), torch.from_numpy(mask)
+
+    prov = EncoderEmbeddingProvider(enc, *rows(2048)).with_center(sample=1024)
+    assert enc.packed == (request.param == "modernbert")
+    cfg = LeannConfig(metric=DistanceMetric.COSINE, wave_size=512, sketch_query=True,
+                      sketch_dims=32, routing_size=1024)
+    idx = LeannIndex(cfg, device="cuda").build(prov)
+    q = enc.encode_tokens(*(t.cuda() for t in rows(16))) - prov.center
+    return idx, prov, q
+
+
+def _recompute_call(idx, q, prov):
+    """One sketch-gated i36 search -> (dists, ids, counters, embed calls,
+    packed tokens encoded)."""
+    from islands_tpu_torch.utils import tracing
+
+    calls, tokens = prov.calls, modernbert_mod.forward_packed.tokens_encoded
+    tracing.reset()
+    tracing.enable()
+    try:
+        d, ids = idx.search(q, k=10, provider=prov, gate="sketch", ef=48, promote_width=32,
+                            max_iters=36)
+        torch.cuda.synchronize()
+    finally:
+        tracing.disable()
+    counters = tracing.snapshot()["counters"]
+    tracing.reset()
+    return (d, ids, counters, prov.calls - calls,
+            modernbert_mod.forward_packed.tokens_encoded - tokens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 16])
+def test_split_hop_graph_answers_as_the_eager_route(recompute_index, b):
+    """LeannIndex.search's two graphs a hop around the provider's eager
+    `embed` agree bit for bit with the eager hops (dists, ids, rows scored
+    exactly), on the capturing call and on a replaying one; `embed` runs
+    once a hop plus the route's call on both routes, and the packed
+    ModernBERT provider encodes the same tokens."""
+    from islands_tpu_torch.core.search import HopGraphCache
+
+    idx, prov, q = recompute_index
+    counting = _CountingProvider(prov)
+    graphs = HopGraphCache()
+    try:
+        for part in (q[:b], q.flip(0)[:b]):
+            idx._hop_graphs = None
+            want = _recompute_call(idx, part, counting)
+            idx._hop_graphs = graphs
+            got = _recompute_call(idx, part, counting)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            hops = want[2]["search.hops"]
+            assert got[2]["search.exact_rows"] == want[2]["search.exact_rows"]
+            assert got[2]["search.hop.graphed"] == got[2]["search.hops"] == hops > 0
+            assert got[3] == want[3] == hops + 1
+            assert got[4] == want[4]
+            assert (want[4] > 0) == prov.encoder.packed
+    finally:
+        idx._hop_graphs = HopGraphCache()
+    assert len(graphs._graphs) == 1

@@ -17,6 +17,8 @@ queries. Tolerances:
   floor 0.9 and reachability checks apply too)."""
 
 import dataclasses
+import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -32,13 +34,19 @@ from islands_tpu.core.leann import LeannIndex as JIndex
 from islands_tpu.ops import distance as jd
 from islands_tpu_torch.convert import graph_from_numpy, leann_from_numpy
 from islands_tpu_torch.core import build as tbuild
+from islands_tpu_torch.core import search as search_mod
 from islands_tpu_torch.core.config import LeannConfig as TConfig
+from islands_tpu_torch.core.config import PQConfig as TPQConfig
 from islands_tpu_torch.core.config import PruningStrategy as TP
 from islands_tpu_torch.core.embedding import InMemoryEmbeddingProvider
-from islands_tpu_torch.core.search import StoredSearcher, make_prune_fn
+from islands_tpu_torch.core.leann import LeannIndex
+from islands_tpu_torch.core.search import HopGraphCache, StoredSearcher, make_prune_fn
 from islands_tpu_torch.ops import distance as td
+from islands_tpu_torch.ops import proj as proj_ops
+from islands_tpu_torch.utils import tracing
 
 from conftest import make_vectors
+from torch_graph_capture import EagerCapture
 
 N, DIM, N_PREFIX = 800, 48, 600
 SMALL = dict(m=12, m0=24, ef_construction=64, wave_size=128, intra_wave_k=8, reverse_slack=12)
@@ -219,3 +227,179 @@ def test_extend_noop_and_from_empty(state):
     empty.extend(state["tprov"], num_total=200)
     assert empty.num_nodes == 200
     assert dataclasses.asdict(empty.config) == dataclasses.asdict(cfg)
+
+
+# -- the sketch gate's hop replayed as two graphs around the provider ---------
+#
+# On the CPU `EagerCapture` stands in for CUDA graph capture: each "replay"
+# runs the captured step again. The split route must answer as the eager
+# route bit for bit and call the provider exactly as often.
+
+
+class _CountingProvider:
+    """A provider that counts its `embed` calls and reads to the host in
+    each one, as the packed ModernBERT route reads its rows' lengths."""
+
+    def __init__(self, inner):
+        self.inner, self.calls, self.read = inner, 0, 0
+
+    def embed(self, ids):
+        self.calls += 1
+        self.read += int((ids >= 0).sum())
+        return self.inner.embed(ids)
+
+
+def _traced(fn):
+    """fn() with the program's tracing on -> (its result, the counters)."""
+    tracing.reset()
+    tracing.enable()
+    try:
+        out = fn()
+    finally:
+        tracing.disable()
+    counters = tracing.snapshot()["counters"]
+    tracing.reset()
+    return out, counters
+
+
+def _split_call(idx, q, prov, **kw):
+    """One sketch-gated search -> (dists, ids, counters, embed calls)."""
+    before = prov.calls
+    (d, ids), counters = _traced(lambda: idx.search(q, k=10, provider=prov, gate="sketch",
+                                                    **kw))
+    return d, ids, counters, prov.calls - before
+
+
+@pytest.mark.parametrize("kw", [dict(ef=48, promote_width=32, max_iters=36),
+                                dict(ef=32, promote_width=8, max_iters=12)],
+                         ids=["i36", "narrow"])
+@pytest.mark.parametrize("b", [1, 64])
+def test_split_hop_graph_answers_as_the_eager_route(state, b, kw):
+    _, t = _pair(state["ref"])
+    prov = _CountingProvider(state["tprov"])
+    capture = EagerCapture()
+    graphs = HopGraphCache(capture)
+    # the call that captures, then one that only replays
+    for q in (state["tq"][:b], state["tq"].flip(0)[:b]):
+        t._hop_graphs = None
+        want = _split_call(t, q, prov, **kw)
+        frac = t.last_recompute_fraction
+        t._hop_graphs = graphs
+        got = _split_call(t, q, prov, **kw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert got[2]["search.exact_rows"] == want[2]["search.exact_rows"]
+        assert t.last_recompute_fraction == frac
+        hops = want[2]["search.hops"]
+        assert got[2]["search.hop.graphed"] == got[2]["search.hops"] == hops > 0
+        assert "search.hop.graphed" not in want[2]
+        # the provider runs once a hop plus the route's entry scores, on both
+        assert got[3] == want[3] == hops + 1
+    assert capture.captures == 2  # pre and post, once for the shape
+    assert len(graphs._graphs) == 1
+
+
+def test_split_hop_graph_follows_extend_and_rebuild(state):
+    x, q = state["x"], state["tq"][:16]
+    capture = EagerCapture()
+    idx = LeannIndex(TConfig(**SMALL), device="cpu")
+    idx.build(state["tprov"], num_vectors=N_PREFIX)
+    graphs = idx._hop_graphs = HopGraphCache(capture)
+    kw = dict(k=10, gate="sketch", ef=48, promote_width=32)
+
+    def both(idx, prov):
+        got = idx.search(q, provider=prov, **kw)
+        graphs = idx._hop_graphs
+        idx._hop_graphs = None
+        want = idx.search(q, provider=prov, **kw)
+        idx._hop_graphs = graphs
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        return got
+
+    def replaced(graphs):
+        """The index holds a new, empty cache with the same capture."""
+        new = idx._hop_graphs
+        assert new is not graphs and new.capture is capture and len(new._graphs) == 0
+        return new
+
+    both(idx, state["tprov"])
+    assert capture.captures == 2
+    idx.extend(state["tprov"])
+    graphs = replaced(graphs)
+    _, ids = both(idx, state["tprov"])
+    assert capture.captures == 4 and bool((ids >= N_PREFIX).any())
+    fresh = LeannIndex(TConfig(**SMALL), device="cpu")
+    fresh.build(InMemoryEmbeddingProvider(x[:N_PREFIX], device="cpu"))
+    fresh.extend(state["tprov"])
+    want = fresh.search(q, provider=state["tprov"], **kw)
+    got = idx.search(q, provider=state["tprov"], **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # a rebuild at the same n swaps every tensor a hop reads
+    other = InMemoryEmbeddingProvider(x[::-1].copy(), device="cpu")
+    idx.build(other)
+    replaced(graphs)
+    both(idx, other)
+    assert capture.captures == 6
+
+
+def test_split_hop_graph_returns_no_view_of_its_buffers(state):
+    _, t = _pair(state["ref"])
+    t._hop_graphs = HopGraphCache(EagerCapture())
+    kw = dict(provider=state["tprov"], gate="sketch", ef=48, promote_width=32)
+    d1, i1 = t.search(state["tq"][:16], k=48, **kw)  # k = ef
+    keep = d1.clone(), i1.clone()
+    t.search(state["tq"][16:32], k=48, **kw)
+    assert torch.equal(d1, keep[0]) and torch.equal(i1, keep[1])
+
+
+def test_split_hop_graph_keeps_no_provider_past_the_call(state):
+    _, t = _pair(state["ref"])
+    t._hop_graphs = HopGraphCache(EagerCapture())
+    prov = _CountingProvider(state["tprov"])
+    t.search(state["tq"][:4], k=10, provider=prov, gate="sketch", ef=32)
+    assert len(t._hop_graphs._graphs) == 1 and prov.calls > 1
+    gone = weakref.ref(prov)
+    del prov
+    gc.collect()
+    assert gone() is None  # the cached graphs hold none of its `embed`
+
+
+def test_split_hop_graph_capture_error_raises_and_counts_nothing(state):
+    _, t = _pair(state["ref"])
+
+    def broken(run, device):
+        run()
+        raise RuntimeError("capture failed")
+
+    t._hop_graphs = HopGraphCache(broken)
+    prov = _CountingProvider(state["tprov"])
+    before = search_mod.hop_merge.launches
+    with pytest.raises(RuntimeError, match="capture failed"):
+        _traced(lambda: t.search(state["tq"][:4], k=10, provider=prov, gate="sketch", ef=32))
+    counters = tracing.snapshot()["counters"]
+    assert not any(k in counters for k in ("search.hops", "search.hop.graphed",
+                                           "search.exact_rows"))
+    assert search_mod.hop_merge.launches == before
+    assert prov.calls == 1  # the route's entry scores, before the capture
+    assert len(t._hop_graphs._graphs) == 0
+
+
+def test_other_recompute_routes_take_no_graph(state):
+    capture = EagerCapture()
+    idx = LeannIndex(TConfig(**SMALL), device="cpu")
+    idx.build(state["tprov"], with_pq=TPQConfig(num_subquantizers=8, num_centroids=16))
+    idx._hop_graphs = HopGraphCache(capture)
+    q = state["tq"][:8]
+    (_, counters) = _traced(lambda: (
+        idx.search(q, k=10, provider=state["tprov"], gate="none", ef=32),
+        idx.search_two_level(q, k=10, provider=state["tprov"], ef=32, max_iters=8)))
+    # the static loop of the sketch-gated query, over the same provider
+    qp = td.prep_query(q, idx.config.metric)
+    qs = proj_ops.sketch_query(qp, idx.sketch.w, idx.sketch.scale)
+    search_mod.batched_sketch_gated_query(
+        qp, qs, state["tprov"].embed, idx.sketch.scale, idx.graph.neighbors,
+        idx.sketch.nbr_sketch, idx.sketch.node_sketch, idx._routing,
+        exact_scorer=search_mod.make_recompute_scorer(idx.config.metric),
+        metric=idx.config.metric, dim=DIM, ef=32, k=10, aq_width=64, promote_width=16,
+        max_iters=6, static_iters=True, hop_graphs=idx._hop_graphs)
+    assert capture.captures == 0 and len(idx._hop_graphs._graphs) == 0
+    assert "search.hop.graphed" not in counters and counters["search.hops"] > 0

@@ -36,6 +36,7 @@ from islands_tpu_torch.core.search import StoredSearcher
 from islands_tpu_torch.utils import tracing
 
 from conftest import make_vectors
+from torch_graph_capture import EagerCapture
 
 N, DIM, NQ = 2048, 32, 64
 # bench.py's primary rungs (ef, promote, max_iters, expand_width,
@@ -302,21 +303,8 @@ def test_gated_query_keeps_the_loop_before_it(setups, knobs, monkeypatch):
     assert torch.equal(got[0], got[1])
 
 
-class _EagerCapture:
-    """`HopGraphCache`'s capture on the CPU: "replay" runs the step again and
-    writes its flag into the one tensor the capture handed out."""
-
-    def __init__(self):
-        self.captures = 0
-
-    def __call__(self, run, device):
-        self.captures += 1
-        out = run().clone()
-        return (lambda: out.copy_(run())), out
-
-
 def _graphed(port, monkeypatch, capture=None):
-    cache = search_mod.HopGraphCache(capture or _EagerCapture())
+    cache = search_mod.HopGraphCache(capture or EagerCapture())
     monkeypatch.setattr(port, "_hop_graphs", cache)
     return cache
 
@@ -344,7 +332,7 @@ def test_graph_route_answers_as_the_eager_route(setups, knobs, b, monkeypatch):
 def test_graph_cache_keys_by_shape_and_keeps_the_latest(setups, monkeypatch):
     s = setups("euclidean")
     q = torch.from_numpy(s["q"])
-    capture = _EagerCapture()
+    capture = EagerCapture()
     monkeypatch.setattr(search_mod, "HOP_GRAPHS_KEPT", 2)
     cache = _graphed(s["port"], monkeypatch, capture)
     kw = dict(gate="sketch", ef=32, promote_width=16, max_iters=4, expand_width=2)
