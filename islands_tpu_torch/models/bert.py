@@ -231,8 +231,9 @@ def encode(model: nn.Module, input_ids: torch.Tensor, attention_mask: torch.Tens
     """ids + mask (on the model's device) -> sentence embeddings [B, H]
     float32. `model` is a BertModel or a ModernBertModel: the forward is
     the module's own, so the pipeline follows the encoder's architecture. A
-    model with a `pooled(ids, mask)` method (ModernBERT's packed forward)
-    pools its own rows."""
+    BertModel runs its padded forward and is mean pooled here; a model with
+    a `pooled(ids, mask)` method (ModernBERT's packed forward) pools its own
+    rows."""
     pooled = getattr(model, "pooled", None)
     if pooled is None:
         return mean_pool_normalize(model(input_ids, attention_mask), attention_mask, normalize)

@@ -11,21 +11,21 @@ Port of islands_tpu/models/modernbert.py (answerdotai/ModernBERT):
 - a gated MLP (GeGLU): Wi projects to 2 * intermediate, gelu(input) * gate;
 - a final LayerNorm after the stack.
 
-Two forwards. `ModernBertModel.forward` takes a padded [B, L] batch and
-computes every layer as dense attention with a [B, 1, L, L] band bias for
-the local layers, as the reference does; the tests hold it against the
-JAX package. `forward_packed` takes the batch unpadded, as the published
-model runs ("unpadding"): the valid tokens of n segments end to end with
-their offsets, RoPE positions restarting in each segment, each local layer
+One forward, on the batch unpadded as the published model runs it
+("unpadding"): the valid tokens of n segments end to end with their
+offsets, RoPE positions restarting in each segment, each local layer
 attending within its band inside its own segment and each global layer to
 its whole segment through the varlen attention kernel
-(`ops/varlen_attention`), then the final norm and a mean over each
-segment's tokens. `bert.encode` on a ModernBERT model, and so the text
-encoder and the recompute provider, run `forward_packed` (via
-`ModernBertModel.pooled`); its always-on `forward_packed.tokens_encoded`
-counts the tokens it has encoded, and under tracing it counts
-"encoder.tokens" and "encoder.segments" and `pack_rows` opens
-"encoder.pack".
+(`ops/varlen_attention`), then the final norm (`hidden_packed`) and a mean
+over each segment's tokens (`forward_packed`). The JAX package computes
+the same layers as dense attention over a padded batch with a band bias;
+the tests hold this forward against it at the valid positions
+(`ModernBertModel.forward` lays the packed hidden states out as the padded
+batch). `bert.encode` on a ModernBERT model, and so the text encoder and
+the recompute provider, run `forward_packed` (via `ModernBertModel.pooled`);
+its always-on `forward_packed.tokens_encoded` counts the tokens it has
+encoded, and under tracing it counts "encoder.tokens" and
+"encoder.segments" and `pack_rows` opens "encoder.pack".
 
 The reference keeps one `lax.scan` body by selecting the global or local
 tables with per-layer float flags; here each layer knows its kind. Numerics
@@ -49,7 +49,6 @@ from islands_tpu_torch.models.bert import (
     encode,
     layer_norm,
     mean_pool_normalize,
-    padding_bias,
     read_checkpoint,
 )
 from islands_tpu_torch.ops.varlen_attention import Segments, varlen_attention
@@ -57,7 +56,7 @@ from islands_tpu_torch.utils.tracing import count, region
 
 __all__ = ["ModernBertConfig", "ModernBertModel", "Segments", "encode", "forward_packed",
            "init_params", "load_hf_checkpoint", "mean_pool_normalize", "pack_rows",
-           "rope_tables", "rotate_half", "token_chunks"]
+           "rope_tables", "token_chunks"]
 
 #: Most tokens one packed forward takes (262,144: the tokens of the BERT
 #: provider's 4,096-row chunk at 64 tokens); longer work is cut into chunks
@@ -151,21 +150,6 @@ def rope_tables(slen: int, head_dim: int, theta: float) -> tuple[np.ndarray, np.
     return np.cos(emb), np.sin(emb)
 
 
-def rotate_half(x: torch.Tensor) -> torch.Tensor:
-    half = x.shape[-1] // 2
-    return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
-
-
-def band_bias(attention_mask: torch.Tensor, window: int, dtype: torch.dtype) -> torch.Tensor:
-    """[B, 1, L, L] additive bias of a local layer: the padding bias plus
-    -1e9 outside |q - k| <= window // 2, summed in float32 and then cast."""
-    slen = attention_mask.shape[1]
-    pos = torch.arange(slen, device=attention_mask.device)
-    in_window = (pos[:, None] - pos[None, :]).abs() <= window // 2
-    pad = padding_bias(attention_mask, torch.float32)
-    return (pad + torch.where(in_window, 0.0, -1e9)[None, None]).to(dtype)
-
-
 class ModernBertLayer(nn.Module):
     def __init__(self, config: ModernBertConfig, index: int, dtype: torch.dtype, device):
         super().__init__()
@@ -181,20 +165,6 @@ class ModernBertLayer(nn.Module):
         self.mlp_norm = nn.LayerNorm(h, **f32)
         self.wi = nn.Linear(h, 2 * i, **lin)
         self.mlp_wo = nn.Linear(i, h, **lin)
-
-    def forward(self, x, cos, sin, bias):
-        b, slen, h = x.shape
-        nh = self.heads
-        xn = x if self.attn_norm is None else layer_norm(x, self.attn_norm)
-        qkv = self.wqkv(xn).view(b, slen, 3, nh, h // nh)
-        # RoPE in float32 on [B, L, H, D]; cos/sin are [L, 1, D].
-        q, k = qkv[:, :, 0].float(), qkv[:, :, 1].float()
-        q = (q * cos + rotate_half(q) * sin).to(x.dtype).transpose(1, 2)
-        k = (k * cos + rotate_half(k) * sin).to(x.dtype).transpose(1, 2)
-        v = qkv[:, :, 2].transpose(1, 2)
-        ctx = F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
-        x = x + self.wo(ctx.transpose(1, 2).reshape(b, slen, h))
-        return self._mlp(x)
 
     def _mlp(self, x):
         wi = self.wi(layer_norm(x, self.mlp_norm))
@@ -217,8 +187,10 @@ class ModernBertLayer(nn.Module):
 
 
 class ModernBertModel(nn.Module):
-    """ModernBERT encoder: [B, L] ids + [B, L] mask -> hidden states
-    [B, L, H] float32. Built by `convert.modernbert_from_numpy`."""
+    """ModernBERT encoder on packed segments: `hidden_packed` gives their
+    final hidden states, `forward` the same laid out as a padded batch,
+    `pooled` and `pooled_rows` the mean pooled rows of a padded batch or
+    token table. Built by `convert.modernbert_from_numpy`."""
 
     def __init__(self, config: ModernBertConfig, device=None):
         super().__init__()
@@ -238,23 +210,21 @@ class ModernBertModel(nn.Module):
         if key not in self._rope:
             hd = self.config.hidden_size // self.config.num_attention_heads
             cos, sin = rope_tables(slen, hd, theta)
-            self._rope[key] = (torch.from_numpy(cos).to(device)[:, None, :],
-                               torch.from_numpy(sin).to(device)[:, None, :])
+            self._rope[key] = (torch.from_numpy(cos).to(device),
+                               torch.from_numpy(sin).to(device))
         return self._rope[key]
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
-        cfg = self.config
-        slen = input_ids.shape[1]
-        dev = input_ids.device
-        x = layer_norm(self.word(input_ids.long()), self.emb_norm).to(self.dtype)
-        global_bias = padding_bias(attention_mask, self.dtype)
-        local_bias = band_bias(attention_mask, cfg.local_attention, self.dtype)
-        rope = {True: self._tables(slen, cfg.global_rope_theta, dev),
-                False: self._tables(slen, cfg.local_rope_theta, dev)}
-        for layer in self.layers:
-            cos, sin = rope[layer.is_global]
-            x = layer(x, cos, sin, global_bias if layer.is_global else local_bias)
-        return layer_norm(x.float(), self.final_norm)
+        """A padded batch [B, L] (each mask a prefix of ones) -> final hidden
+        states [B, L, H] float32: `hidden_packed` on each row's valid tokens,
+        zeros at the padding."""
+        lens = attention_mask.sum(dim=1).cpu().numpy()
+        rows = torch.arange(input_ids.shape[0], device=input_ids.device)
+        ids, segs = pack_rows(input_ids, rows, lens)
+        out = torch.zeros((*input_ids.shape, self.config.hidden_size), dtype=torch.float32,
+                          device=input_ids.device)
+        out[segs.segment_ids, segs.positions] = self.hidden_packed(ids, segs)
+        return out
 
     def hidden_packed(self, ids: torch.Tensor, segs: Segments) -> torch.Tensor:
         """Packed ids [T] of the segments `segs` -> final hidden states

@@ -3,8 +3,9 @@
 `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into a shared library
 with a plain C interface, `build/islands_tpu_torch/lib<name>-<hash>.so` under
 the repository root, at its first use (the hash of the source names the file,
-so an edited source builds anew). The library is loaded with `ctypes`; the
-caller sets its entry point's argument types. Nothing here runs at import.
+so an edited source builds anew). The library is loaded with `ctypes`, and
+`entry` hands out each entry point typed once, at its first use. Nothing
+here runs at import.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "islands_tpu_torch"
 
 _libs: dict[str, ctypes.CDLL] = {}
+_entries: dict[tuple[str, str], object] = {}
 
 
 def _nvcc() -> str:
@@ -64,6 +66,17 @@ def load(name: str) -> ctypes.CDLL:
         build(name)
         _libs[name] = ctypes.CDLL(str(library_path(name)))
     return _libs[name]
+
+
+def entry(name: str, symbol: str, argtypes: list, restype=ctypes.c_int):
+    """The C function `symbol` of the named kernel's library, loaded (and
+    built) and given its argument and result types at the first call."""
+    key = (name, symbol)
+    if key not in _entries:
+        fn = getattr(load(name), symbol)
+        fn.argtypes, fn.restype = argtypes, restype
+        _entries[key] = fn
+    return _entries[key]
 
 
 def check(name: str, status: int) -> None:

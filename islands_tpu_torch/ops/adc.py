@@ -128,9 +128,8 @@ def gated_adc_sums(tables: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     out = torch.empty((b, e), dtype=torch.float32, device=tables.device)
     if b == 0 or e == 0:
         return out
-    fn = _cuda.load("gated_adc").gated_adc_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _cuda.entry("gated_adc", "gated_adc_launch",
+                     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     with torch.cuda.device(tables.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(tables.data_ptr(), codes.data_ptr(), out.data_ptr(), b, e, s, k, stream)
@@ -156,11 +155,10 @@ def adc_scan(tables: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     out = torch.empty((b, n), dtype=torch.float32, device=tables.device)
     if b == 0 or n == 0:
         return out
-    fn = _cuda.load("adc_scan").adc_scan_launch
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                                            ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                                            ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = _cuda.entry("adc_scan", "adc_scan_launch",
+                     [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                                              ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                                              ctypes.c_void_p])
     with torch.cuda.device(tables.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(tables.data_ptr(), codes.data_ptr(), codes.element_size(),
@@ -180,9 +178,9 @@ def _smallest_plan(b: int, n: int, s: int, k: int, r: int):
     shared memory beside the lists). The C plan is the one place that
     decides the route. Builds the kernel's library."""
     plan = (ctypes.c_int64 * 6)()
-    fn = _cuda.load("adc_scan").adc_scan_smallest_plan
-    fn.argtypes = [ctypes.c_int, ctypes.c_int64] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int64
+    fn = _cuda.entry("adc_scan", "adc_scan_smallest_plan",
+                     [ctypes.c_int, ctypes.c_int64] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+                     ctypes.c_int64)
     return plan if fn(b, n, s, k, r, plan) > 0 else None
 
 
@@ -197,9 +195,7 @@ def smallest_tiles(b: int, n: int, s: int, k: int, r: int) -> int:
 def smallest_max_r() -> int:
     """The largest r of the "smallest" kernel (csrc/adc_scan.cu kMaxR), which
     SMALLEST_MAX_R states for the CPU. Builds the kernel's library."""
-    fn = _cuda.load("adc_scan").adc_scan_smallest_max_r
-    fn.restype = ctypes.c_int
-    return fn()
+    return _cuda.entry("adc_scan", "adc_scan_smallest_max_r", [])()
 
 
 def adc_scan_smallest(tables: torch.Tensor, codes: torch.Tensor, r: int,
@@ -228,10 +224,9 @@ def adc_scan_smallest(tables: torch.Tensor, codes: torch.Tensor, r: int,
     tables, codes = tables.contiguous(), codes.contiguous()
     keys = torch.empty((b, plan[3] * r), dtype=torch.int64, device=tables.device)
     pos = torch.empty((b, r), dtype=torch.int64, device=tables.device)
-    fn = _cuda.load("adc_scan").adc_scan_smallest_launch
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int, ctypes.c_int64] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = _cuda.entry("adc_scan", "adc_scan_smallest_launch",
+                     [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+                     + [ctypes.c_int, ctypes.c_int64] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     with torch.cuda.device(tables.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(tables.data_ptr(), codes.data_ptr(), codes.element_size(),

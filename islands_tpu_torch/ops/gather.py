@@ -53,10 +53,9 @@ def row_gather(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     out = torch.empty((k, d), dtype=x.dtype, device=x.device)
     if k == 0 or d == 0:
         return out
-    fn = _cuda.load("row_gather").row_gather_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _cuda.entry("row_gather", "row_gather_launch",
+                     [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                                              ctypes.c_void_p])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(x.data_ptr(), ids.data_ptr(), out.data_ptr(), k, n, d, stream)

@@ -80,9 +80,8 @@ def hop_merge(nd: torch.Tensor, ni: torch.Tensor, aqd: torch.Tensor,
     oi = torch.empty((b, a), dtype=torch.int32, device=nd.device)
     if b == 0:
         return pd, pi, od, oi
-    fn = _cuda.load("hop_merge").hop_merge_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _cuda.entry("hop_merge", "hop_merge_launch",
+                     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     with torch.cuda.device(nd.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(nd.data_ptr(), ni.data_ptr(), aqd.data_ptr(), aqi.data_ptr(),

@@ -59,9 +59,8 @@ def _launch(q: torch.Tensor, x: torch.Tensor, mode: str) -> torch.Tensor:
     out = torch.empty((b, n), dtype=torch.float32, device=q.device)
     if b == 0 or n == 0:
         return out
-    fn = _cuda.load("pairwise").pairwise_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _cuda.entry("pairwise", "pairwise_launch",
+                     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(q.data_ptr(), x.data_ptr(), out.data_ptr(), b, n, d, _MODES[mode],

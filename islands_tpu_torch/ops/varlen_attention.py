@@ -5,11 +5,12 @@ end to end in [T, heads, d] tensors, segment j holding rows
 [cu_seqlens[j], cu_seqlens[j+1]) of a `Segments` (built from the lengths
 on the host, so nothing reads the device back). A query attends only to keys of its own
 segment; with `window` w (a local layer) only to those at positions p with
-|p - its own| <= w, the band edges of `models/modernbert.band_bias`
-(ModernBERT's `local_attention` of 128 is w = 64). With `rope=(cos, sin)`
+|p - its own| <= w, the band edges of the JAX package's
+`modernbert_forward`, |q - k| <= local_attention // 2 (ModernBERT's
+`local_attention` of 128 is w = 64). With `rope=(cos, sin)`
 (float32 tables [P, d] in the duplicated-half layout, row = position in the
 segment) q and k are rotated first, in float32, and rounded to their dtype,
-as the model's padded forward rotates them. Scale 1/sqrt(d); softmax
+as the JAX package's forward rotates them. Scale 1/sqrt(d); softmax
 statistics and the sums in float32; the output in the inputs' dtype.
 
 It replaces no TPU kernel: the JAX package computes every ModernBERT layer

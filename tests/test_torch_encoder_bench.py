@@ -13,9 +13,11 @@ behind the indexer service as a user configures it.
   reference runs ModernBERT only there: its recompute provider raises),
   scores within atol 1e-5 (float32 encoders, the same graph).
 - In recompute mode the port's service returns its stored-mode hits, scores
-  within atol 1e-5: the stored rows are encoded at their length bucket, the
-  recomputed ones at the full max_seq_length, so they differ by padding
-  alone; a reorder is allowed only between scores that tie within it.
+  within atol 1e-5: both modes run each chunk's valid tokens through the
+  packed forward (the stored rows from the texts, the recomputed ones
+  packed from the provider's token table), in batches of other chunks, so
+  they differ only in the order of float sums; a reorder is allowed only
+  between scores that tie within it.
 """
 
 import importlib.util

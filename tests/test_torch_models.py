@@ -1,5 +1,8 @@
 """models/bert.py and models/modernbert.py of the port against the JAX
-package's, on the same numpy-seeded weights and ids.
+package's, on the same numpy-seeded weights and ids. BERT's padded forward
+is compared at every position; ModernBERT's forward, which runs each
+row's valid tokens packed and leaves zeros at the padding, at the valid
+positions.
 
 Tolerances:
 - init_params: equal array for array (the same numpy draws);
@@ -29,6 +32,7 @@ from islands_tpu_torch import convert
 from islands_tpu_torch.models import PRESETS, ModelArchitecture, TextEncoder
 from islands_tpu_torch.models import bert as tbert
 from islands_tpu_torch.models import modernbert as tmb
+from islands_tpu_torch.ops import varlen_attention as va
 
 # transformers' torch models are all these tests use; skip its TensorFlow
 # and Flax imports (most of its import time).
@@ -91,6 +95,9 @@ def test_forward_and_encode_f32(arch):
     with torch.no_grad():
         got = model(torch.from_numpy(ids), torch.from_numpy(mask)).numpy()
     assert got.dtype == np.float32 and got.shape == want.shape
+    if arch == "modernbert":
+        assert not got[mask == 0].any()
+        got, want = got[mask > 0], want[mask > 0]
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
     for normalize in (True, False):
         want_e = np.asarray(jmod.encode(params, jnp.asarray(ids), jnp.asarray(mask), cfg,
@@ -169,26 +176,41 @@ def test_padding_invariance(arch):
 
 @pytest.mark.parametrize("theta", [10000.0, 160000.0])
 def test_rope_tables_and_rotate_half(theta):
+    """The RoPE tables equal the reference's; so does the rotate-half of
+    the varlen attention's plain version (its RoPE with cos 0 and sin 1)."""
     cos, sin = tmb.rope_tables(40, 16, theta)
     jcos, jsin = jmb._rope_tables(40, 16, theta)
     np.testing.assert_array_equal(cos, np.asarray(jcos))
     np.testing.assert_array_equal(sin, np.asarray(jsin))
     x = np.random.default_rng(0).standard_normal((3, 5, 16)).astype(np.float32)
-    np.testing.assert_array_equal(tmb.rotate_half(torch.from_numpy(x)).numpy(),
-                                  np.asarray(jmb._rotate_half(jnp.asarray(x))))
+    rotated = va._rotate(torch.from_numpy(x), torch.zeros(3, 16), torch.ones(3, 16))
+    np.testing.assert_array_equal(rotated.numpy(), np.asarray(jmb._rotate_half(jnp.asarray(x))))
 
 
 def test_local_band_bias():
-    """The local layers' bias, against the reference's expression
-    (islands_tpu/models/modernbert.py, modernbert_forward)."""
+    """The local layers' band: the keys the reference's additive bias leaves
+    open (islands_tpu/models/modernbert.py, modernbert_forward: the padding
+    bias plus -1e9 outside |q - k| <= local_attention // 2) at each row's
+    valid queries, against the keys the plain varlen attention lets a
+    query see at window local_attention // 2 on the rows' valid tokens."""
     cfg = jmb.ModernBertConfig.tiny_test()
     _, mask = _ids(slen=40)
     pad = jnp.where(jnp.asarray(mask)[:, None, None, :] > 0, 0.0, -1e9)
     pos = jnp.arange(40)
     in_window = jnp.abs(pos[:, None] - pos[None, :]) <= cfg.local_attention // 2
-    want = np.asarray(pad + jnp.where(in_window, 0.0, -1e9)[None, None])
-    got = tmb.band_bias(torch.from_numpy(mask), cfg.local_attention, torch.float32)
-    np.testing.assert_array_equal(got.numpy(), want)
+    bias = np.asarray(pad + jnp.where(in_window, 0.0, -1e9)[None, None])
+    lens = mask.sum(1)
+    t = int(lens.sum())
+    want = np.zeros((t, t), dtype=bool)
+    for row, (start, n) in enumerate(zip(np.cumsum(lens) - lens, lens)):
+        want[start:start + n, start:start + n] = bias[row, 0, :n, :n] == 0
+    # Equal scores and one-hot values: query i's output is nonzero at
+    # exactly the keys it attends to.
+    out = va.varlen_attention(torch.zeros((t, 1, t)), torch.zeros((t, 1, t)),
+                              torch.eye(t)[:, None, :], va.Segments.from_lengths(lens, "cpu"),
+                              cfg.local_attention // 2)
+    np.testing.assert_array_equal(out[:, 0].numpy() > 0, want)
+    assert not want[:40, :40].all()  # the band cuts the 40-token rows
     assert [layer.is_global for layer in _port("modernbert", cfg).layers] == [
         True, False, False, True]
 
@@ -344,11 +366,11 @@ def _preset_window_config(**kw):
 
 
 def test_modernbert_at_the_preset_window_f32():
-    """The port's forward and encode against modernbert_forward and encode
-    at seq 320, where the +/-64 band of the local layers cuts, with padded
-    rows; within atol 1e-5 in float32, as the other float32 cases. A window
-    wide enough to cover the sequence changes the output, so the band is
-    exercised."""
+    """The port's forward and encode against modernbert_forward at the
+    valid positions and encode at seq 320, where the +/-64 band of the
+    local layers cuts, with padded rows; within atol 1e-5 in float32, as
+    the other float32 cases. A window wide enough to cover the sequence
+    changes the output, so the band is exercised."""
     cfg = _preset_window_config()
     assert (cfg.local_attention, cfg.global_attn_every_n_layers, cfg.global_rope_theta,
             cfg.local_rope_theta) == (128, 3, 160000.0, 10000.0)
@@ -362,7 +384,8 @@ def test_modernbert_at_the_preset_window_f32():
     want = np.asarray(jmb.modernbert_forward(params, jnp.asarray(ids), jnp.asarray(mask), cfg))
     with torch.no_grad():
         got = model(torch.from_numpy(ids), torch.from_numpy(mask)).numpy()
-    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    on = mask.astype(bool)
+    np.testing.assert_allclose(got[on], want[on], atol=1e-5, rtol=0)
     for normalize in (True, False):
         want_e = np.asarray(jmb.encode(params, jnp.asarray(ids), jnp.asarray(mask), cfg,
                                        normalize=normalize))

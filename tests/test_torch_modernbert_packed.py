@@ -12,12 +12,13 @@ route of the text encoder and the recompute provider, on the CPU.
 - The kernel module's plain version against one dense masked softmax over
   the whole packed batch (block-diagonal by segment, banded for a local
   layer), with and without RoPE, within 1e-5.
-- The packed route's pooled rows against the padded `forward` +
-  `mean_pool_normalize` of the same rows (atol 1e-5), so the two forwards
-  of the port agree; the packed route calls no SDPA and builds no band bias.
+- The packed route's pooled rows (`bert.encode`) against the reference's
+  pooled rows of the same padded batch, an empty row among them (atol
+  1e-5); the packed route calls no SDPA.
 - The provider's packed `embed` against `bert.encode` of the same rows, also
   cut into several packed forwards by a small token budget.
-- A ModernBERT `TextEncoder` takes a 1,000-token text whole, and
+- A ModernBERT `TextEncoder` takes a 1,000-token text whole (against the
+  reference's pooled rows, atol 1e-5), and
   `embed_texts` hands the device flat runs of whole texts, never a table
   padded to the longest text.
 """
@@ -180,18 +181,22 @@ def _refuse(*args, **kwargs):
     raise AssertionError("the packed route must not reach this")
 
 
+def _reference_rows(w, cfg, ids, mask, normalize=True):
+    """The reference's mean pooled rows of a padded batch (an empty row
+    gives zeros), L2-normalised if asked."""
+    rows = ref.pooled_rows(as_torch(w), ref_cfg(cfg), ids, mask.sum(1).numpy())
+    return F.normalize(rows, dim=-1, eps=1e-12) if normalize else rows
+
+
 @pytest.mark.parametrize("normalize", [False, True])
-def test_packed_route_equals_the_padded_forward(tiny, monkeypatch, normalize):
+def test_packed_route_equals_the_reference(tiny, monkeypatch, normalize):
     w, model, segs = tiny
     ids, mask = _padded(segs + [np.zeros(0, np.int32)])  # and an empty row
-    with torch.inference_mode():
-        want = bert_mod.mean_pool_normalize(model(ids, mask), mask, normalize)
+    want = _reference_rows(w, CFG, ids, mask, normalize)
     calls = []
     real = va.varlen_attention
     monkeypatch.setattr(mb, "varlen_attention", lambda *a, **k: calls.append(1) or real(*a, **k))
     monkeypatch.setattr(F, "scaled_dot_product_attention", _refuse)
-    monkeypatch.setattr(mb, "band_bias", _refuse)
-    monkeypatch.setattr(mb, "padding_bias", _refuse)
     got = bert_mod.encode(model, ids, mask, normalize)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
     assert float(got[-1].abs().max()) == 0.0
@@ -244,15 +249,14 @@ def test_provider_traces_the_packing_and_counts_tokens(tiny):
 
 def test_modernbert_text_encoder_takes_a_long_text_whole():
     cfg = dataclasses.replace(CFG, max_position_embeddings=1024)
-    enc = TextEncoder(weights(cfg), cfg, device="cpu")
+    w = weights(cfg)
+    enc = TextEncoder(w, cfg, device="cpu")
     assert enc.packed and enc.config.max_seq_length == 1024
     text = " ".join(f"w{i % 300}" for i in range(998))
     ids, mask = enc.tokenize([text, "short text"])
     assert ids.shape == (2, 1000) and mask[0].sum() == 1000 and mask[1].sum() == 4
     got = enc.embed_texts([text, "short text"])
-    ids_t, mask_t = torch.from_numpy(ids), torch.from_numpy(mask)
-    with torch.inference_mode():
-        want = bert_mod.mean_pool_normalize(enc.model(ids_t, mask_t), mask_t).numpy()
+    want = _reference_rows(w, cfg, torch.from_numpy(ids), torch.from_numpy(mask)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
     np.testing.assert_allclose(enc.encode_tokens(ids, mask).numpy(), want, atol=1e-5, rtol=0)
     cut = enc.embed_texts([" ".join(f"w{i % 300}" for i in range(254))])
