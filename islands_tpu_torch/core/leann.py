@@ -34,7 +34,7 @@ from islands_tpu_torch.core.pq import (
     pq_scan_smallest,
 )
 from islands_tpu_torch.core.search import (
-    HopGraphCache,
+    HOP_GRAPHS_KEPT,
     batched_search,
     batched_sketch_gated_query,
     batched_two_level_search,
@@ -47,6 +47,7 @@ from islands_tpu_torch.device import resolve_device, to_device
 from islands_tpu_torch.ops import distance as dist_ops
 from islands_tpu_torch.ops import proj as proj_ops
 from islands_tpu_torch.ops.merge import smallest_k
+from islands_tpu_torch.utils.graphs import GraphCache
 from islands_tpu_torch.utils.tracing import count, region, traced
 
 
@@ -81,7 +82,7 @@ class LeannIndex:
         self._nbr_codes_key = None
         # On CUDA the sketch gate replays its hops as CUDA graphs, two a hop
         # around the provider's eager `embed`.
-        self._hop_graphs = HopGraphCache() if self.device.type == "cuda" else None
+        self._hop_graphs = GraphCache(kept=HOP_GRAPHS_KEPT) if self.device.type == "cuda" else None
 
     # -- introspection -----------------------------------------------------
 
@@ -201,7 +202,7 @@ class LeannIndex:
         self._tl_routing = {}
         self._init_routing()
         if self._hop_graphs is not None:
-            self._hop_graphs = HopGraphCache(self._hop_graphs.capture)
+            self._hop_graphs = GraphCache(self._hop_graphs.capture, HOP_GRAPHS_KEPT)
 
     def _init_routing(self) -> None:
         """Routing ids of the sketch gate (used by `search`)."""

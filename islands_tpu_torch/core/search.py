@@ -33,17 +33,17 @@ region "search.hop" holding its "search.hop.sync" read and counting
 is the root region "stored.search".
 
 On CUDA the sketch-gated query's freeze route replays its hops as CUDA
-graphs (`HopGraphCache`, captured on the first call of a shape). Over stored
-rows (StoredSearcher) a hop is one graph, `_HopGraph`. Over a provider
-(LeannIndex.search) it is two, `_SplitHopGraph`: the provider's `embed`
-runs eagerly between them, once a hop, inside "search.hop.rescore". A
-replayed hop counts "search.hop.graphed" too; its graphed steps' regions
-open only while they are captured.
+graphs (a utils/graphs.GraphCache of at most HOP_GRAPHS_KEPT, captured on
+the first call of a shape). Over stored rows (StoredSearcher) a hop is one
+graph, `_HopGraph`. Over a provider (LeannIndex.search) it is two,
+`_SplitHopGraph`: the provider's `embed` runs eagerly between them, once a
+hop, inside "search.hop.rescore". A replayed hop counts
+"search.hop.graphed" too; its graphed steps' regions open only while they
+are captured.
 """
 
 from __future__ import annotations
 
-import collections
 import functools
 import threading
 import typing
@@ -63,6 +63,7 @@ from islands_tpu_torch.ops.merge import (
     pack_id_expanded,
     smallest_k,
 )
+from islands_tpu_torch.utils.graphs import GraphCache
 from islands_tpu_torch.utils.tracing import count, region, traced
 
 _INF = float("inf")
@@ -511,7 +512,7 @@ def batched_sketch_gated_query(qp, qs, exact_ctx, scale, neighbors, nbr_sketch,
     are scored exactly. With a recompute scorer, mean(n_exact) / N is the
     recompute fraction. Returns (dists [B, k], ids [B, k], n_exact [B]).
 
-    With a `HopGraphCache` (`hop_graphs`) and a freeze route over a
+    With a GraphCache of hops (`hop_graphs`) and a freeze route over a
     non-empty batch, each hop replays captured CUDA graphs of the same ops.
     Over stored rows (`exact_ctx` a tensor) a hop is one graph
     (`_HopGraph`). Over a provider (`exact_ctx` a callable, its `embed`) it
@@ -567,53 +568,6 @@ def batched_sketch_gated_query(qp, qs, exact_ctx, scale, neighbors, nbr_sketch,
 # Shapes whose hop graph a StoredSearcher or a LeannIndex keeps; the least
 # recently used goes first.
 HOP_GRAPHS_KEPT = 4
-
-
-def capture_cuda_graph(run, device: torch.device):
-    """Warm `run` up once on a side stream (as torch.cuda.graphs asks), then
-    capture it as one CUDA graph on `device`. -> (replay, what `run`
-    returned: a tensor or a tuple of them, which every replay rewrites in
-    place)."""
-    with torch.cuda.device(device):
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            run()
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        # thread_local: a capture must not fail other threads' searches.
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            out = run()
-
-    def replay():
-        with torch.cuda.device(device):
-            graph.replay()
-
-    return replay, out
-
-
-class HopGraphCache:
-    """A searcher's or index's captured hops, one `_HopGraph` or
-    `_SplitHopGraph` per key (the batch and the loop's widths), at most
-    HOP_GRAPHS_KEPT of them, least recently used out first. `capture(run,
-    device) -> (replay, out)` makes a graph (`capture_cuda_graph`)."""
-
-    def __init__(self, capture=capture_cuda_graph):
-        self.capture = capture
-        self._graphs: collections.OrderedDict = collections.OrderedDict()
-        self._lock = threading.Lock()
-
-    def get(self, key, make):
-        """The entry under `key`, made by `make()` (a capture) if missing."""
-        with self._lock:
-            graph = self._graphs.get(key)
-            if graph is None:
-                graph = self._graphs[key] = make()
-                while len(self._graphs) > HOP_GRAPHS_KEPT:
-                    self._graphs.popitem(last=False)
-            else:
-                self._graphs.move_to_end(key)
-            return graph
 
 
 class _HopGraph:
@@ -873,7 +827,7 @@ class StoredSearcher:
     per-hop exact loop. Runs on CUDA unless `device="cpu"` is asked for; the
     graph, corpus and sketch move to that device. On CUDA the sketch gate's
     freeze route replays each hop as one CUDA graph, captured on the first
-    call of each shape and kept by the searcher (`HopGraphCache`)."""
+    call of each shape and kept by the searcher (HOP_GRAPHS_KEPT at most)."""
 
     def __init__(self, graph: CsrGraph, x, metric: DistanceMetric = DistanceMetric.COSINE,
                  sketch: proj_ops.SketchIndex | None = None, routing_size: int = 1024,
@@ -900,7 +854,7 @@ class StoredSearcher:
         else:
             self._routing = None
         # The sketch gate's freeze route replays each hop as a CUDA graph.
-        self._hop_graphs = HopGraphCache() if self.device.type == "cuda" else None
+        self._hop_graphs = GraphCache(kept=HOP_GRAPHS_KEPT) if self.device.type == "cuda" else None
 
     @traced("stored.search")
     def search(self, queries, k: int, ef: int = 64, expand_width: int = 4,

@@ -28,6 +28,7 @@ HuggingFace checkpoint directory (model.safetensors or pytorch_model.bin).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import struct
 from pathlib import Path
@@ -36,6 +37,21 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from islands_tpu_torch.utils.graphs import GraphCache, capture_cuda_graph
+from islands_tpu_torch.utils.tracing import count
+
+#: Shapes whose padded encode a CUDA BertModel keeps as CUDA graphs
+#: (`encode`), the least recently used out first: a text query at each of
+#: the encoder's four length buckets, a recompute index's hop and route
+#: shapes, and two more (a batch of texts, a build's chunk).
+ENCODE_GRAPHS_KEPT = 8
+#: The largest encode graphed, as rows x length x intermediate_size. Above
+#: it the forward is not dispatch-bound, and its activations would stay in
+#: the graphs' pool for the model's life: through MiniLM 32 x 256 tokens
+#: (1.3e7) is graphed; 2,048 x 64 (2.0e8) ran 18.8 ms eager and 18.7 as a
+#: graph on an H100, whose pool then held 2.1 GB.
+ENCODE_GRAPH_ELEMENTS = 1 << 24
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,6 +216,9 @@ class BertModel(nn.Module):
         self.emb_ln = nn.LayerNorm(h, eps=config.layer_norm_eps, **f32)
         self.layers = nn.ModuleList(BertLayer(config, self.dtype, device)
                                     for _ in range(config.num_hidden_layers))
+        # On CUDA `encode` replays this forward as CUDA graphs, one a shape.
+        cuda = device is not None and torch.device(device).type == "cuda"
+        self.encode_graphs = new_encode_graphs() if cuda else None
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
         slen = input_ids.shape[1]
@@ -225,6 +244,37 @@ def mean_pool_normalize(hidden: torch.Tensor, attention_mask: torch.Tensor,
     return pooled
 
 
+def new_encode_graphs(capture=None) -> GraphCache:
+    """A BertModel's captured encodes, at most ENCODE_GRAPHS_KEPT shapes,
+    each captured on its second call. By default CUDA graphs that share one
+    memory pool: `encode` replays them one at a time, so the shapes kept
+    hold one set of activations."""
+    if capture is None:
+        capture = functools.partial(capture_cuda_graph, pool=torch.cuda.graph_pool_handle())
+    return GraphCache(capture, kept=ENCODE_GRAPHS_KEPT, after=2)
+
+
+class _EncodeGraph:
+    """The padded forward, mean pooling and optional L2 norm of one shape,
+    captured over static ids and mask buffers. A call copies its rows in,
+    replays, and clones the pooled rows out, so nothing it returns aliases
+    the graph's output."""
+
+    def __init__(self, model: nn.Module, input_ids, attention_mask, normalize: bool, capture):
+        self.ids, self.mask = input_ids.clone(), attention_mask.clone()
+
+        def run():
+            return mean_pool_normalize(model(self.ids, self.mask), self.mask, normalize)
+
+        self.replay, self.out = capture(run, input_ids.device)
+
+    def __call__(self, input_ids, attention_mask) -> torch.Tensor:
+        self.ids.copy_(input_ids)
+        self.mask.copy_(attention_mask)
+        self.replay()
+        return self.out.clone()
+
+
 @torch.inference_mode()
 def encode(model: nn.Module, input_ids: torch.Tensor, attention_mask: torch.Tensor,
            normalize: bool = True) -> torch.Tensor:
@@ -233,12 +283,31 @@ def encode(model: nn.Module, input_ids: torch.Tensor, attention_mask: torch.Tens
     the module's own, so the pipeline follows the encoder's architecture. A
     BertModel runs its padded forward and is mean pooled here; a model with
     a `pooled(ids, mask)` method (ModernBERT's packed forward) pools its own
-    rows."""
+    rows.
+
+    A BertModel built on CUDA replays its padded forward, pooling and norm
+    as one CUDA graph per (rows, length, normalize), captured on the second
+    call of a shape and kept in `model.encode_graphs` (at most
+    ENCODE_GRAPHS_KEPT); each replay counts "encoder.graphed". Elsewhere,
+    on a shape's first call, at zero rows and above ENCODE_GRAPH_ELEMENTS,
+    the forward runs eagerly."""
     pooled = getattr(model, "pooled", None)
-    if pooled is None:
-        return mean_pool_normalize(model(input_ids, attention_mask), attention_mask, normalize)
-    out = pooled(input_ids, attention_mask)
-    return F.normalize(out, dim=-1, eps=1e-12) if normalize else out
+    if pooled is not None:
+        out = pooled(input_ids, attention_mask)
+        return F.normalize(out, dim=-1, eps=1e-12) if normalize else out
+    graphs = getattr(model, "encode_graphs", None)
+    rows, slen = input_ids.shape
+    if graphs is not None and 0 < rows * slen * model.config.intermediate_size \
+            <= ENCODE_GRAPH_ELEMENTS:
+        # One lock from the copy in to the clone out: the graphs share a pool.
+        with graphs.lock:
+            graph = graphs.get((rows, slen, normalize), lambda: _EncodeGraph(
+                model, input_ids, attention_mask, normalize, graphs.capture))
+            if graph is not None:
+                out = graph(input_ids, attention_mask)
+                count("encoder.graphed", 1)
+                return out
+    return mean_pool_normalize(model(input_ids, attention_mask), attention_mask, normalize)
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,9 @@ Over a ModernBERT encoder (`TextEncoder.packed`) the rows are not padded:
 `ModernBertModel.pooled_rows` packs their valid tokens end to end
 (`modernbert.pack_rows`) and runs `modernbert.forward_packed` on chunks of
 whole rows of at most `modernbert.PACK_TOKENS` tokens. A BERT encoder
-keeps its padded rows and its chunks of EMBED_CHUNK_BATCHES batches.
+keeps its padded rows and its chunks of EMBED_CHUNK_BATCHES batches; on
+CUDA a chunk of a recurring, small enough shape replays `bert.encode`'s
+graph of it.
 `with_center`, and so the build, take the same route as `embed`.
 
 Tracing (utils/tracing): `embed` is the region "provider.embed" and counts
@@ -69,14 +71,16 @@ class EncoderEmbeddingProvider:
         if self._lengths is not None:
             return self._encode_packed(safe, normalize)
         chunk = self.encoder.config.batch_size * EMBED_CHUNK_BATCHES
-        out = torch.empty((safe.numel(), self.dimension), dtype=torch.float32,
-                          device=self.device)
+        parts = []
         for s in range(0, safe.numel(), chunk):
             rows = safe[s:s + chunk]
             with region("encoder.forward"):
-                out[s:s + chunk] = encode(self.encoder.model, self.token_ids[rows],
-                                          self.token_mask[rows], normalize)
-        return out
+                parts.append(encode(self.encoder.model, self.token_ids[rows],
+                                    self.token_mask[rows], normalize))
+        if len(parts) == 1:
+            return parts[0]  # encode's own fresh tensor
+        return (torch.cat(parts) if parts else
+                torch.empty((0, self.dimension), dtype=torch.float32, device=self.device))
 
     def _encode_packed(self, rows: torch.Tensor, normalize: bool) -> torch.Tensor:
         """Pooled outputs [n, d] of the token rows `rows` (in range), their

@@ -21,6 +21,12 @@ nothing and costs most of a region's time); a counter adds a host integer
 to the innermost open region's record. Neither waits for a device.
 `snapshot()` returns the records, the counter totals and how many records
 were dropped.
+
+Graph replays count too: "search.hop.graphed", a hop replayed as CUDA
+graphs (core/search), and "encoder.graphed", a padded BERT encode replayed
+as one CUDA graph (models/bert.encode: keyed by rows, length and
+normalize, captured on a shape's second call, at most ENCODE_GRAPHS_KEPT a
+model), inside its "encoder.forward" region.
 """
 
 from __future__ import annotations

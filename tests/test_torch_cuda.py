@@ -744,11 +744,12 @@ def test_hop_graph_answers_as_the_eager_hops(graph_searcher, b, mode, final_resc
     distances, n_exact) on the capturing call and on a replaying one; the
     replays count the eager route's K1 launches, and one
     `search.hop.graphed` per `search.hops`."""
-    from islands_tpu_torch.core.search import HopGraphCache
+    from islands_tpu_torch.core.search import HOP_GRAPHS_KEPT
+    from islands_tpu_torch.utils.graphs import GraphCache
 
     searcher, q = graph_searcher
     kw = dict(P16, hop_merge=mode, final_rescore=final_rescore)
-    graphs = HopGraphCache()
+    graphs = GraphCache(kept=HOP_GRAPHS_KEPT)
     for part in (q[:b], q.flip(0)[:b]):
         want = _gated_call(searcher, part, kw, monkeypatch, None)
         got = _gated_call(searcher, part, kw, monkeypatch, graphs)
@@ -763,11 +764,12 @@ def test_hop_graph_answers_as_the_eager_hops(graph_searcher, b, mode, final_resc
 @pytest.mark.cuda
 def test_hop_graph_per_batch_size_and_answers_outlive_the_next_call(graph_searcher,
                                                                    monkeypatch):
-    from islands_tpu_torch.core.search import HopGraphCache
+    from islands_tpu_torch.core.search import HOP_GRAPHS_KEPT
+    from islands_tpu_torch.utils.graphs import GraphCache
 
     searcher, q = graph_searcher
     kw = dict(P16, hop_merge="fused")
-    graphs = HopGraphCache()
+    graphs = GraphCache(kept=HOP_GRAPHS_KEPT)
     first = _gated_call(searcher, q[:64], kw, monkeypatch, graphs)
     kept = [t.clone() for t in first[:3]]
     second = _gated_call(searcher, q[64:96], kw, monkeypatch, graphs)
@@ -785,11 +787,12 @@ def test_hop_graph_replays_show_hop_merge_in_the_profiler(graph_searcher, monkey
     device events: a replayed hop's kernels must still be recorded."""
     from torch.autograd import DeviceType
 
-    from islands_tpu_torch.core.search import HopGraphCache
+    from islands_tpu_torch.core.search import HOP_GRAPHS_KEPT
+    from islands_tpu_torch.utils.graphs import GraphCache
 
     searcher, q = graph_searcher
     kw = dict(P16, hop_merge="fused", final_rescore=64)
-    graphs = HopGraphCache()
+    graphs = GraphCache(kept=HOP_GRAPHS_KEPT)
     _gated_call(searcher, q, kw, monkeypatch, graphs)  # captures
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -884,11 +887,12 @@ def test_split_hop_graph_answers_as_the_eager_route(recompute_index, b):
     exactly), on the capturing call and on a replaying one; `embed` runs
     once a hop plus the route's call on both routes, and the packed
     ModernBERT provider encodes the same tokens."""
-    from islands_tpu_torch.core.search import HopGraphCache
+    from islands_tpu_torch.core.search import HOP_GRAPHS_KEPT
+    from islands_tpu_torch.utils.graphs import GraphCache
 
     idx, prov, q = recompute_index
     counting = _CountingProvider(prov)
-    graphs = HopGraphCache()
+    graphs = GraphCache(kept=HOP_GRAPHS_KEPT)
     try:
         for part in (q[:b], q.flip(0)[:b]):
             idx._hop_graphs = None
@@ -903,5 +907,83 @@ def test_split_hop_graph_answers_as_the_eager_route(recompute_index, b):
             assert got[4] == want[4]
             assert (want[4] > 0) == prov.encoder.packed
     finally:
-        idx._hop_graphs = HopGraphCache()
+        idx._hop_graphs = GraphCache(kept=HOP_GRAPHS_KEPT)
     assert len(graphs._graphs) == 1
+
+
+# -- the padded BERT encode replayed as one CUDA graph a shape ---------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [32, 2048])
+def test_encode_graph_answers_as_the_eager_encode(rows, monkeypatch):
+    """MiniLM-L6's widths in bfloat16 (the codesearch cells' encoder): the
+    replayed encode equals the eager one bit for bit at [rows, 64], on the
+    shape's first (eager) call, the capturing call and a replaying one,
+    centred (raw) and normalized. The graph holds the same kernels on the
+    same buffers' shapes, so no rounding may differ. [2,048, 64] is above
+    ENCODE_GRAPH_ELEMENTS, so the bound is raised for it here."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from islands_tpu_torch.utils import tracing
+
+    monkeypatch.setattr(bert_mod, "ENCODE_GRAPH_ELEMENTS", 1 << 28)
+
+    cfg = bert_mod.BertConfig.minilm_l6()
+    model = build_model(bert_mod.init_params(cfg, 0), cfg, "cuda")
+    graphs = model.encode_graphs
+    assert graphs is not None and graphs.kept == bert_mod.ENCODE_GRAPHS_KEPT
+    rng = np.random.default_rng(rows)
+    for normalize in (False, True):
+        for i in range(3):
+            ids = rng.integers(1000, 29000, size=(rows, 64))
+            mask = (np.arange(64)[None, :] < rng.integers(32, 65, rows)[:, None])
+            ids = torch.from_numpy((ids * mask).astype(np.int32)).cuda()
+            mask = torch.from_numpy(mask.astype(np.int32)).cuda()
+            model.encode_graphs = None
+            want = bert_mod.encode(model, ids, mask, normalize)
+            model.encode_graphs = graphs
+            tracing.reset()
+            tracing.enable()
+            try:
+                got = bert_mod.encode(model, ids, mask, normalize)
+            finally:
+                tracing.disable()
+            counters = tracing.snapshot()["counters"]
+            tracing.reset()
+            gap = float((got - want).abs().max())
+            assert torch.equal(got, want), f"largest difference {gap}"
+            assert counters == ({"encoder.graphed": 1} if i else {})
+    assert list(graphs._graphs) == [(rows, 64, False), (rows, 64, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 16])
+def test_split_hop_graph_with_encoder_graphs_answers_as_eager(recompute_index, b):
+    """LeannIndex.search's sketch gate (hop graphs on) returns the same
+    dists and ids with the encoder's graphs as without, on the capturing
+    call and a replaying one; every `embed` of a BERT provider (one a hop
+    and the route's) replays one encode graph but for each shape's first
+    call, and the packed ModernBERT provider takes none."""
+    idx, prov, q = recompute_index
+    model = prov.encoder.model
+    kept = getattr(model, "encode_graphs", None)
+    assert (kept is None) == prov.encoder.packed
+    graphs = None if kept is None else bert_mod.new_encode_graphs()
+    counting = _CountingProvider(prov)
+    try:
+        for n, part in enumerate((q[:b], q.flip(0)[:b])):
+            if graphs is not None:
+                model.encode_graphs = None
+            want = _recompute_call(idx, part, counting)
+            if graphs is not None:
+                model.encode_graphs = graphs
+            got = _recompute_call(idx, part, counting)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            hops = got[2]["search.hops"]
+            assert "encoder.graphed" not in want[2]
+            assert got[2].get("encoder.graphed", 0) == (
+                0 if graphs is None else hops - 1 if n == 0 else hops + 1)
+    finally:
+        if kept is not None:
+            model.encode_graphs = kept

@@ -40,10 +40,11 @@ from islands_tpu_torch.core.config import PQConfig as TPQConfig
 from islands_tpu_torch.core.config import PruningStrategy as TP
 from islands_tpu_torch.core.embedding import InMemoryEmbeddingProvider
 from islands_tpu_torch.core.leann import LeannIndex
-from islands_tpu_torch.core.search import HopGraphCache, StoredSearcher, make_prune_fn
+from islands_tpu_torch.core.search import HOP_GRAPHS_KEPT, StoredSearcher, make_prune_fn
 from islands_tpu_torch.ops import distance as td
 from islands_tpu_torch.ops import proj as proj_ops
 from islands_tpu_torch.utils import tracing
+from islands_tpu_torch.utils.graphs import GraphCache
 
 from conftest import make_vectors
 from torch_graph_capture import EagerCapture
@@ -278,7 +279,7 @@ def test_split_hop_graph_answers_as_the_eager_route(state, b, kw):
     _, t = _pair(state["ref"])
     prov = _CountingProvider(state["tprov"])
     capture = EagerCapture()
-    graphs = HopGraphCache(capture)
+    graphs = GraphCache(capture, HOP_GRAPHS_KEPT)
     # the call that captures, then one that only replays
     for q in (state["tq"][:b], state["tq"].flip(0)[:b]):
         t._hop_graphs = None
@@ -303,7 +304,7 @@ def test_split_hop_graph_follows_extend_and_rebuild(state):
     capture = EagerCapture()
     idx = LeannIndex(TConfig(**SMALL), device="cpu")
     idx.build(state["tprov"], num_vectors=N_PREFIX)
-    graphs = idx._hop_graphs = HopGraphCache(capture)
+    graphs = idx._hop_graphs = GraphCache(capture, HOP_GRAPHS_KEPT)
     kw = dict(k=10, gate="sketch", ef=48, promote_width=32)
 
     def both(idx, prov):
@@ -343,7 +344,7 @@ def test_split_hop_graph_follows_extend_and_rebuild(state):
 
 def test_split_hop_graph_returns_no_view_of_its_buffers(state):
     _, t = _pair(state["ref"])
-    t._hop_graphs = HopGraphCache(EagerCapture())
+    t._hop_graphs = GraphCache(EagerCapture(), HOP_GRAPHS_KEPT)
     kw = dict(provider=state["tprov"], gate="sketch", ef=48, promote_width=32)
     d1, i1 = t.search(state["tq"][:16], k=48, **kw)  # k = ef
     keep = d1.clone(), i1.clone()
@@ -353,7 +354,7 @@ def test_split_hop_graph_returns_no_view_of_its_buffers(state):
 
 def test_split_hop_graph_keeps_no_provider_past_the_call(state):
     _, t = _pair(state["ref"])
-    t._hop_graphs = HopGraphCache(EagerCapture())
+    t._hop_graphs = GraphCache(EagerCapture(), HOP_GRAPHS_KEPT)
     prov = _CountingProvider(state["tprov"])
     t.search(state["tq"][:4], k=10, provider=prov, gate="sketch", ef=32)
     assert len(t._hop_graphs._graphs) == 1 and prov.calls > 1
@@ -370,7 +371,7 @@ def test_split_hop_graph_capture_error_raises_and_counts_nothing(state):
         run()
         raise RuntimeError("capture failed")
 
-    t._hop_graphs = HopGraphCache(broken)
+    t._hop_graphs = GraphCache(broken, HOP_GRAPHS_KEPT)
     prov = _CountingProvider(state["tprov"])
     before = search_mod.hop_merge.launches
     with pytest.raises(RuntimeError, match="capture failed"):
@@ -387,7 +388,7 @@ def test_other_recompute_routes_take_no_graph(state):
     capture = EagerCapture()
     idx = LeannIndex(TConfig(**SMALL), device="cpu")
     idx.build(state["tprov"], with_pq=TPQConfig(num_subquantizers=8, num_centroids=16))
-    idx._hop_graphs = HopGraphCache(capture)
+    idx._hop_graphs = GraphCache(capture, HOP_GRAPHS_KEPT)
     q = state["tq"][:8]
     (_, counters) = _traced(lambda: (
         idx.search(q, k=10, provider=state["tprov"], gate="none", ef=32),

@@ -11,6 +11,8 @@ Tolerances:
 - bfloat16: the smallest per-row cosine of the pooled outputs >= 0.999 (the
   port's attention keeps its probabilities in float32 registers where the
   reference rounds them to bfloat16);
+- the padded encode replayed as a graph (EagerCapture standing in for
+  CUDA graph capture): equal to the eager encode bit for bit;
 - HF parity (mirrors tests/test_models.py's TestHFParity and
   TestModernBertHFParity): within 1e-4 of transformers' forward on a
   checkpoint it saved to a tmp dir, loaded from safetensors and from .bin.
@@ -20,6 +22,8 @@ import dataclasses as dc
 import json
 import os
 import shutil
+import sys
+import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +37,9 @@ from islands_tpu_torch.models import PRESETS, ModelArchitecture, TextEncoder
 from islands_tpu_torch.models import bert as tbert
 from islands_tpu_torch.models import modernbert as tmb
 from islands_tpu_torch.ops import varlen_attention as va
+from islands_tpu_torch.utils import tracing
+
+from torch_graph_capture import EagerCapture
 
 # transformers' torch models are all these tests use; skip its TensorFlow
 # and Flax imports (most of its import time).
@@ -396,3 +403,199 @@ def test_modernbert_at_the_preset_window_f32():
     with torch.no_grad():
         unbanded = wide(torch.from_numpy(ids), torch.from_numpy(mask)).numpy()
     assert np.abs(unbanded[0] - got[0]).max() > 1e-3
+
+
+# -- the padded encode replayed as CUDA graphs ---------------------------------
+#
+# On the CPU `EagerCapture` stands in for CUDA graph capture: each "replay"
+# runs the captured forward again over the graph's buffers. The graph route
+# must answer as the eager route bit for bit.
+
+
+def _rows64(rows, seed=5, slen=64):
+    """[rows, slen] ids and a prefix mask of 1 to slen valid tokens."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, 1024, size=(rows, slen)).astype(np.int32)
+    lens = rng.integers(1, slen + 1, size=rows)
+    mask = (np.arange(slen)[None, :] < lens[:, None]).astype(np.int32)
+    return torch.from_numpy(ids * mask), torch.from_numpy(mask)
+
+
+def _traced_encode(model, ids, mask, normalize=True):
+    """tbert.encode with the program's tracing on -> (rows, counters)."""
+    tracing.reset()
+    tracing.enable()
+    try:
+        out = tbert.encode(model, ids, mask, normalize)
+    finally:
+        tracing.disable()
+    counters = tracing.snapshot()["counters"]
+    tracing.reset()
+    return out, counters
+
+
+def _eager(model, ids, mask, normalize=True):
+    graphs, model.encode_graphs = model.encode_graphs, None
+    try:
+        return tbert.encode(model, ids, mask, normalize)
+    finally:
+        model.encode_graphs = graphs
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("rows,dtype", [(1, "float32"), (32, "float32"), (2048, "float32"),
+                                        (32, "bfloat16")])
+def test_encode_graph_answers_as_the_eager_route(rows, dtype, normalize):
+    cfg = dc.replace(jbert.BertConfig.tiny_test(), dtype=dtype)
+    model = _port("bert", cfg)
+    assert model.encode_graphs is None  # built on the CPU: the eager route
+    capture = EagerCapture()
+    model.encode_graphs = tbert.new_encode_graphs(capture)
+    # the first call of a shape runs eagerly, the second captures, the
+    # third (other rows) only replays
+    for seed in (5, 6, 7):
+        ids, mask = _rows64(rows, seed)
+        want = _eager(model, ids, mask, normalize)
+        got, counters = _traced_encode(model, ids, mask, normalize)
+        assert torch.equal(got, want)
+        assert counters == ({} if seed == 5 else {"encoder.graphed": 1})
+    assert capture.captures == 1
+    assert list(model.encode_graphs._graphs) == [(rows, 64, normalize)]
+
+
+def test_encode_graph_per_shape_and_the_bound(monkeypatch):
+    monkeypatch.setattr(tbert, "ENCODE_GRAPHS_KEPT", 2)
+    model = _port("bert", jbert.BertConfig.tiny_test())
+    capture = EagerCapture()
+    graphs = model.encode_graphs = tbert.new_encode_graphs(capture)
+    assert graphs.kept == 2
+
+    def call(rows, slen=64, normalize=True, seed=5, times=1):
+        ids, mask = _rows64(rows, seed, slen)
+        for _ in range(times):
+            assert torch.equal(tbert.encode(model, ids, mask, normalize),
+                               _eager(model, ids, mask, normalize))
+
+    call(4)  # first call of a shape: eager, nothing captured
+    assert capture.captures == 0 and not graphs._graphs
+    call(4, seed=6)  # second: captured
+    call(4, seed=7)  # same shape: replayed
+    assert capture.captures == 1
+    call(8, times=2)
+    call(4, normalize=False, times=2)  # the norm is part of the key
+    assert capture.captures == 3
+    assert list(graphs._graphs) == [(8, 64, True), (4, 64, False)]  # (4, 64, True) out
+    call(8)  # touched: now the latest
+    call(4, slen=32, times=2)
+    assert capture.captures == 4
+    assert list(graphs._graphs) == [(8, 64, True), (4, 32, True)]
+    call(4)  # evicted: a first call again, eager
+    assert capture.captures == 4
+    call(4)  # and captured on the second
+    assert capture.captures == 5
+    call(16)  # a shape asked for once evicts nothing
+    assert capture.captures == 5 and (16, 64, True) not in graphs._graphs
+    # no rows: the eager route, nothing captured
+    ids, mask = _rows64(0)
+    assert tbert.encode(model, ids, mask).shape == (0, 64)
+    assert capture.captures == 5
+
+
+def test_encode_graph_bound_holds_the_text_and_recompute_shapes():
+    """A text query at each length bucket, a recompute index's hop and
+    route shapes, a batch of texts and a build chunk stay captured under
+    the default bound, in any order: after each shape's second call none is
+    captured again."""
+    model = _port("bert", jbert.BertConfig.tiny_test())
+    capture = EagerCapture()
+    model.encode_graphs = tbert.new_encode_graphs(capture)
+    # (the tiny model's positions stop at 128: its buckets are 16 to 128)
+    shapes = [(1, b) for b in (16, 32, 64, 128)] + [(64, 128), (2, 128), (64, 64),
+                                                    (256, 128)]
+    assert len(set(shapes)) == tbert.ENCODE_GRAPHS_KEPT
+    rng = np.random.default_rng(0)
+    for i in range(6):
+        for j in rng.permutation(len(shapes)):
+            rows, slen = shapes[j]
+            tbert.encode(model, *_rows64(rows, i, slen))
+        if i == 1:
+            assert capture.captures == len(shapes)
+    assert capture.captures == len(shapes)
+
+
+def test_encode_graph_leaves_large_encodes_eager(monkeypatch):
+    """Above ENCODE_GRAPH_ELEMENTS (rows x length x intermediate_size) the
+    encode runs eagerly: it is not dispatch-bound, and its activations
+    would stay in the graphs' pool."""
+    model = _port("bert", jbert.BertConfig.tiny_test())
+    ffn = model.config.intermediate_size
+    monkeypatch.setattr(tbert, "ENCODE_GRAPH_ELEMENTS", 32 * 64 * ffn)
+    capture = EagerCapture()
+    model.encode_graphs = tbert.new_encode_graphs(capture)
+    for rows, graphed in ((33, False), (32, True)):
+        ids, mask = _rows64(rows)
+        for _ in range(3):
+            got, counters = _traced_encode(model, ids, mask)
+        assert torch.equal(got, _eager(model, ids, mask))
+        assert counters == ({"encoder.graphed": 1} if graphed else {})
+    assert list(model.encode_graphs._graphs) == [(32, 64, True)]
+
+
+def test_encode_graph_returns_no_view_of_its_output():
+    model = _port("bert", jbert.BertConfig.tiny_test())
+    capture = EagerCapture()
+    model.encode_graphs = tbert.new_encode_graphs(capture)
+    tbert.encode(model, *_rows64(32, 4))  # the shape's first call: eager
+    first = tbert.encode(model, *_rows64(32, 5))
+    kept = first.clone()
+    second = tbert.encode(model, *_rows64(32, 6))
+    assert torch.equal(first, kept) and not torch.equal(first, second)
+    assert first.data_ptr() != second.data_ptr() and capture.captures == 1
+
+
+def test_packed_modernbert_takes_no_encode_graph():
+    model = _port("modernbert", jmb.ModernBertConfig.tiny_test())
+    assert not hasattr(model, "encode_graphs")
+    ids, mask = _rows64(8, slen=32)
+    want = tmb.encode(model, ids, mask)
+    capture = EagerCapture()
+    model.encode_graphs = tbert.new_encode_graphs(capture)  # the packed route ignores it
+    _traced_encode(model, ids, mask)
+    got, counters = _traced_encode(model, ids, mask)
+    assert torch.equal(got, want)
+    assert capture.captures == 0 and len(model.encode_graphs._graphs) == 0
+    assert "encoder.graphed" not in counters and counters["encoder.tokens"] > 0
+
+
+def test_encode_graphs_shared_by_threads():
+    """Threads encoding through one model's graphs each get their own rows:
+    the lock spans the copy in, the replay and the clone out."""
+    model = _port("bert", jbert.BertConfig.tiny_test())
+    inputs = [_rows64(rows, seed, slen=16) for seed in range(6) for rows in (2, 3)]
+    wants = [tbert.encode(model, ids, mask) for ids, mask in inputs]
+    capture = EagerCapture()
+    model.encode_graphs = tbert.new_encode_graphs(capture)
+    errors = []
+
+    def work(k):
+        try:
+            for i in range(20):
+                j = (k + i) % len(inputs)
+                if not torch.equal(tbert.encode(model, *inputs[j]), wants[j]):
+                    errors.append(j)
+        except Exception as e:  # a thread's failure, reported by the assert below
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(k,)) for k in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []
+    assert capture.captures == 2

@@ -9,6 +9,8 @@ Tolerances:
   packages with gate "none" and gate "sketch": at least 99% of id rows
   equal and recall@10 within 0.01 of the reference's (the encoders agree to
   ~1e-6, so a near-tie may swap a row);
+- over an encoder whose encode replays graphs (EagerCapture on the CPU):
+  rows, counters and search answers equal to the eager route's bit for bit;
 - a ModernBERT provider: within 1e-5 of islands_tpu.models.modernbert.encode,
   where the reference's own provider raises (it always runs the BERT
   forward).
@@ -30,8 +32,12 @@ from islands_tpu_torch.convert import leann_from_numpy
 from islands_tpu_torch.core.config import LeannConfig as TConfig
 from islands_tpu_torch.core.embedding import EmbeddingProvider
 from islands_tpu_torch.models import EncoderConfig, TextEncoder
+from islands_tpu_torch.models import bert as bert_mod
 from islands_tpu_torch.models import provider as provider_mod
 from islands_tpu_torch.models.provider import EncoderEmbeddingProvider
+from islands_tpu_torch.utils import tracing
+
+from torch_graph_capture import EagerCapture
 
 N, L = 1024, 32
 SMALL = dict(m=12, m0=24, ef_construction=64, wave_size=128, intra_wave_k=8,
@@ -188,3 +194,111 @@ def test_recompute_search_matches_reference(providers, slice_state, gate):
     assert torch.isfinite(d).all()
     if gate == "sketch":
         assert port.last_recompute_fraction == pytest.approx(ref.last_recompute_fraction)
+
+
+# -- the provider over a BERT whose encode replays CUDA graphs -----------------
+#
+# `EagerCapture` stands in for CUDA graph capture on the CPU (see
+# tests/test_torch_models.py); the graph route answers as the eager one bit
+# for bit.
+
+
+def _traced(fn):
+    """fn() with the program's tracing on -> (its result, the counters)."""
+    tracing.reset()
+    tracing.enable()
+    try:
+        out = fn()
+    finally:
+        tracing.disable()
+    counters = tracing.snapshot()["counters"]
+    tracing.reset()
+    return out, counters
+
+
+@pytest.fixture(scope="module")
+def graphed_providers():
+    """Providers over 2,048 64-token rows, plain and centred, sharing one
+    tiny encoder; the centre is taken on the eager route."""
+    ids, mask = token_table(n=2048, slen=64, seed=4)
+    enc = TextEncoder.from_preset("tiny-test", seed=0, device="cpu")
+    prov = EncoderEmbeddingProvider(enc, ids, mask)
+    return prov, prov.with_center(sample=512, batch=128)
+
+
+@pytest.mark.parametrize("centered", [False, True])
+@pytest.mark.parametrize("rows", [1, 32, 2048])
+def test_graphed_embed_answers_as_the_eager_route(graphed_providers, monkeypatch, rows,
+                                                  centered):
+    prov = graphed_providers[int(centered)]
+    model = prov.encoder.model
+    assert model.encode_graphs is None
+    capture = EagerCapture()
+    graphs = bert_mod.new_encode_graphs(capture)
+    rng = np.random.default_rng(rows)
+    # a hop's [B, promote] ids: the shape's first call (eager), the call
+    # that captures, then one that replays
+    shape = (rows // min(rows, 32), min(rows, 32))
+    for i in range(3):
+        ids = torch.from_numpy(rng.integers(0, 2048, size=shape))
+        want = prov.embed(ids)
+        monkeypatch.setattr(model, "encode_graphs", graphs)
+        got, counters = _traced(lambda: prov.embed(ids))
+        monkeypatch.setattr(model, "encode_graphs", None)
+        assert torch.equal(got, want) and got.shape == (*shape, 64)
+        assert counters == dict({"provider.rows": rows}, **{"encoder.graphed": 1} if i else {})
+    assert capture.captures == 1
+
+
+def test_graphed_embed_counts_each_chunk(monkeypatch):
+    ids, mask = token_table(n=64, slen=64)
+    enc = TextEncoder.from_preset("tiny-test", device="cpu", config=EncoderConfig(batch_size=4))
+    prov = EncoderEmbeddingProvider(enc, ids, mask)
+    monkeypatch.setattr(provider_mod, "EMBED_CHUNK_BATCHES", 8)  # 32 rows a chunk
+    rows = torch.arange(40)
+    want = prov.embed(rows)
+    capture = EagerCapture()
+    enc.model.encode_graphs = bert_mod.new_encode_graphs(capture)
+    for i in range(3):
+        got, counters = _traced(lambda: prov.embed(rows))
+        assert torch.equal(got, want)
+        assert counters == dict({"provider.rows": 40}, **{"encoder.graphed": 2} if i else {})
+    assert capture.captures == 2
+    assert list(enc.model.encode_graphs._graphs) == [(32, 64, True), (8, 64, True)]
+
+
+def test_graphed_rows_and_queries_outlive_the_next_call(graphed_providers, monkeypatch):
+    """What a caller keeps (the benchmark's sampled rows and raw query
+    embeddings) is not rewritten by a later call of the same shape."""
+    plain, centred = graphed_providers
+    model = plain.encoder.model
+    monkeypatch.setattr(model, "encode_graphs", bert_mod.new_encode_graphs(EagerCapture()))
+    plain.embed(torch.arange(64, 96))  # the shape's first call: eager
+    for prov in (plain, centred):
+        first = prov.embed(torch.arange(32))
+        kept = first.clone()
+        prov.embed(torch.arange(32, 64))
+        assert torch.equal(first, kept)
+    plain.encoder.encode_tokens(plain.token_ids[8:12], plain.token_mask[8:12])
+    q1 = plain.encoder.encode_tokens(plain.token_ids[:4], plain.token_mask[:4])
+    kept = q1.clone()
+    q2 = plain.encoder.encode_tokens(plain.token_ids[4:8], plain.token_mask[4:8])
+    assert torch.equal(q1, kept) and not torch.equal(q1, q2)
+
+
+def test_recompute_search_with_encoder_graphs_answers_as_eager(providers, slice_state,
+                                                               monkeypatch):
+    _, _, _, tc = providers
+    port, q = slice_state["port"], slice_state["q"]
+    kw = dict(k=10, provider=tc, gate="sketch", ef=48, promote_width=32, max_iters=36)
+    want = port.search(q, **kw)
+    monkeypatch.setattr(tc.encoder.model, "encode_graphs",
+                        bert_mod.new_encode_graphs(EagerCapture()))
+    for first in (True, False):
+        got, counters = _traced(lambda: port.search(q, **kw))
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        # every embed (one a hop, one for the route's entries) replays one
+        # graph, but for each shape's first call
+        hops = counters["search.hops"]
+        assert counters["encoder.graphed"] == (hops - 1 if first else hops + 1)
+    assert counters["provider.rows"] == 32 * (counters["search.hops"] * 32 + 1)

@@ -33,6 +33,7 @@ from islands_tpu_torch.core.config import PQConfig as TPQConfig
 from islands_tpu_torch.core import search as search_mod
 from islands_tpu_torch.core.embedding import InMemoryEmbeddingProvider
 from islands_tpu_torch.core.search import StoredSearcher
+from islands_tpu_torch.utils.graphs import GraphCache
 from islands_tpu_torch.utils import tracing
 
 from conftest import make_vectors
@@ -304,7 +305,7 @@ def test_gated_query_keeps_the_loop_before_it(setups, knobs, monkeypatch):
 
 
 def _graphed(port, monkeypatch, capture=None):
-    cache = search_mod.HopGraphCache(capture or EagerCapture())
+    cache = GraphCache(capture or EagerCapture(), search_mod.HOP_GRAPHS_KEPT)
     monkeypatch.setattr(port, "_hop_graphs", cache)
     return cache
 

@@ -2,7 +2,7 @@
 
 
 class EagerCapture:
-    """`core/search.HopGraphCache`'s capture on the CPU: "replay" runs the
+    """`utils/graphs.GraphCache`'s capture on the CPU: "replay" runs the
     step again and writes what it returns (a tensor or a tuple of them) into
     the tensors the capture handed out, as a CUDA graph's replay would."""
 
