@@ -20,7 +20,16 @@ Phases, each fatal on failure:
    assert_pairwise_close), K5 (row gather) bit for bit, V1 (varlen attention,
    Triton) at a mbcode16k recompute hop's 32 segments, global and local, each
    segment within 5e-3 of the plain version by norm, its library call
-   flex_attention compiled with a segment (+ band) block mask. Then smallest_k's two
+   flex_attention compiled with a segment (+ band) block mask; V1's causal
+   grouped-query mode at Mellum's widths (32 query and 4 key heads of 128,
+   32 segments of 48-192 tokens, sliding layers' window 1,024 and full
+   layers' YaRN tables), each segment within 5e-3 by norm, its library
+   call flex_attention with a causal segment (+ window) mask and shared key
+   heads; M1 (`ops/moe.moe_gemm`: the expert products by
+   torch._grouped_mm between the Triton gather, SwiGLU and combine passes)
+   at Mellum's 2,304 x 896, 64 experts, top 8, at a recompute hop's 3,300
+   tokens and the build's 32,768, each token within 4e-3 of its plain
+   version by norm, its library call the two bare grouped products. Then smallest_k's two
    routes (stable sort, top-k on unique keys) at the paths' row widths: equal
    positions, and the time of each, which sets merge.SORT_MAX_WIDTH.
 3. config 2, the main path of bench.py on the port: a seeded
@@ -162,7 +171,7 @@ import torch
 import torch.nn.functional as F
 
 import islands_tpu_torch
-from benchmark.harness import modernbert_work
+from benchmark.harness import modernbert_work, moe_work
 from islands_tpu_torch import cli, ops
 from islands_tpu_torch.benches import encoder_bench, gather_bench
 from islands_tpu_torch.config import Config, _parse_simple_yaml
@@ -186,6 +195,7 @@ from islands_tpu_torch.indexer.files import chunk_files, collect_files
 from islands_tpu_torch.indexer.native import collect_chunks_native
 from islands_tpu_torch.indexer.service import EmbeddingConfig, IndexerConfig, IndexerService
 from islands_tpu_torch.models import bert as bert_mod
+from islands_tpu_torch.models import mellum
 from islands_tpu_torch.models.encoder import ModelArchitecture, TextEncoder, architecture_module
 from islands_tpu_torch.models.modernbert import ModernBertModel, rope_tables
 from islands_tpu_torch.models.provider import EMBED_CHUNK_BATCHES, EncoderEmbeddingProvider
@@ -206,6 +216,7 @@ from islands_tpu_torch.ops.adc import (
 from islands_tpu_torch.ops.distance import brute_force_topk, prep_corpus, rowwise_distance
 from islands_tpu_torch.ops.gather import row_gather, row_gather_reference
 from islands_tpu_torch.ops.hop_merge import hop_merge, hop_merge_reference
+from islands_tpu_torch.ops import moe
 from islands_tpu_torch.ops import varlen_attention as va
 from islands_tpu_torch.ops.pairwise import (
     pairwise_l2,
@@ -241,7 +252,9 @@ SMEM_LOOKUPS_PER_SM_CLOCK = 32
 # timed shapes take its warp route). K4a and K4b are two modes of one source,
 # K3's "sums" and "smallest" two routes of one. V1 (varlen attention) is
 # Triton, built at its first launch, and replaces no TPU kernel; its name
-# also prefixes its k rotation's, `varlen_attn_rope_k`.
+# also prefixes its k rotation's, `varlen_attn_rope_k`. M1 (the experts)
+# replaces none either: its wrapper counts its three Triton passes, whose
+# names begin with "moe_gemm"; its products are torch._grouped_mm's.
 KERNELS = {
     "hop_merge": (hop_merge, "islands_tpu_torch/csrc/hop_merge.cu",
                   "islands_tpu/ops/pallas_kernels.py:412", "hop_merge_warp_kernel"),
@@ -259,6 +272,7 @@ KERNELS = {
                    "benches/gather_bench.py:71", "row_gather_kernel"),
     "varlen_attention": (va.varlen_attention, "islands_tpu_torch/ops/varlen_attention.py",
                          "none", "varlen_attn"),
+    "moe_gemm": (moe.moe_gemm, "islands_tpu_torch/ops/moe.py", "none", "moe_gemm"),
 }
 SOURCES = sorted({pathlib.Path(src).stem for _, src, _, _ in KERNELS.values()
                   if src.endswith(".cu")})
@@ -308,6 +322,18 @@ GATHER_N, GATHER_D, GATHER_KS, GATHER_TIMED = 1_000_000, 128, (131072, 1048576, 
 VARLEN_ROWS, VARLEN_HEADS, VARLEN_DIM, VARLEN_WINDOW = 32, 12, 64, 64
 VARLEN_LAW = (16384, 128, 2048)
 VARLEN_REL_ERR = 5e-3
+# V1's causal grouped-query mode at Mellum's widths: 32 chunks of the
+# mellum8k law (log-uniform on [48, 192], seed 3), 32 query and 4 key heads
+# of 128, each sliding layer's window 1,024 and the full layers' YaRN.
+GQA_ROWS, GQA_HEADS, GQA_KV_HEADS, GQA_DIM = 32, 32, 4, 128
+GQA_LAW = (8192, 48, 192)
+# M1 at Mellum's widths (hidden, expert width, experts, top k): a recompute
+# hop's tokens and the build's packed chunk; each token's output within
+# MOE_REL_ERR of the plain version's by norm (tests/test_torch_cuda.py's
+# test_moe_gemm_matches_plain_version gives the reason).
+MOE_WIDTHS = (2304, 896, 64, 8)
+MOE_TOKENS = (3300, 32768)
+MOE_REL_ERR = 4e-3
 
 # Phase 6: the prefix built before one 65,536-row re-index, the searches
 # run on the loaded and the in-memory index, and phase 3's headline knobs.
@@ -1040,11 +1066,13 @@ def segment_rel_err(got, want, lengths) -> float:
     return worst
 
 
-def varlen_library(q, k, v, segs, window, rope):
+def varlen_library(q, k, v, segs, window, rope, causal=False):
     """One library call that computes V1's function: flex_attention,
-    compiled, with a block mask of segment (and band) over the packed
-    tokens. q and k are rotated here, outside what is timed. -> (the call,
-    its output [T, heads, d])."""
+    compiled, with a block mask of segment (and band, or with `causal` of
+    keys at or before the query and within the window) over the packed
+    tokens, key heads shared by their query heads' groups. q and k are
+    rotated here, outside what is timed. -> (the call, its output
+    [T, heads, d])."""
     from torch.nn.attention.flex_attention import create_block_mask, flex_attention
 
     cos, sin = rope[0][segs.positions], rope[1][segs.positions]
@@ -1053,7 +1081,11 @@ def varlen_library(q, k, v, segs, window, rope):
 
     def mask_mod(b, h, qi, ki):
         keep = doc[qi] == doc[ki]
-        if window is not None:
+        if causal:
+            keep = keep & (pos[ki] <= pos[qi])
+            if window is not None:
+                keep = keep & (pos[qi] - pos[ki] < window)
+        elif window is not None:
             keep = keep & ((pos[qi] - pos[ki]).abs() <= window)
         return keep
 
@@ -1061,9 +1093,10 @@ def varlen_library(q, k, v, segs, window, rope):
     mask = create_block_mask(mask_mod, None, None, t, t, device=q.device)
     fn = torch.compile(flex_attention, dynamic=False)
     args = [x.transpose(0, 1).unsqueeze(0).contiguous() for x in (qr, kr, v)]
+    gqa = q.shape[1] != k.shape[1]
 
     def call():
-        return fn(*args, block_mask=mask)
+        return fn(*args, block_mask=mask, enable_gqa=gqa)
 
     return call, call()[0].transpose(0, 1)
 
@@ -1139,6 +1172,161 @@ def phase_varlen() -> dict:
                 library_ms=head["library_ms"],
                 library="torch.compile(flex_attention) with a segment (+ band) block mask",
                 shape=[t, h, d], kinds=kinds)
+
+
+def phase_varlen_gqa() -> list:
+    """V1's causal grouped-query mode at Mellum's widths against its plain
+    version: 32 segments of the mellum8k law, 32 query heads reading 4 key
+    heads of 128, a sliding layer (window 1,024, plain RoPE) and a full one
+    (YaRN tables): each segment's output within VARLEN_REL_ERR by norm, one
+    launch counted a call. Times as phase_varlen's; the bound counts the
+    causal pairs (moe_work.causal_pairs) and q (32 heads), k and v (4 heads
+    each) read and the output written once; the library call is
+    flex_attention with a causal segment (+ window) mask and enable_gqa."""
+    lens = np.random.default_rng(3).choice(modernbert_work.log_uniform_lengths(*GQA_LAW),
+                                           size=GQA_ROWS, replace=False)
+    t, h, hk, d = int(lens.sum()), GQA_HEADS, GQA_KV_HEADS, GQA_DIM
+    cfg = mellum.MellumConfig()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    qkv = torch.randn((t, (h + 2 * hk) * d), generator=gen, device="cuda").to(torch.bfloat16)
+    q = qkv[:, :h * d].view(t, h, d)  # strided, as the fused product's columns
+    k = qkv[:, h * d:(h + hk) * d].view(t, hk, d)
+    v = qkv[:, (h + hk) * d:].view(t, hk, d)
+    segs = va.Segments.from_lengths(lens, "cuda")
+    kinds = []
+    for kind in (mellum.SLIDING, mellum.FULL):
+        window = cfg.sliding_window if kind == mellum.SLIDING else None
+        rope = tuple(x.cuda() for x in mellum.rope_tables(cfg, kind, 1024))
+        va.varlen_attention.launches = 0
+        got = va.varlen_attention(q, k, v, segs, window, rope=rope, causal=True)
+        torch.cuda.synchronize()
+        if va.varlen_attention.launches != 1:
+            raise AssertionError("causal varlen_attention did not count its launch")
+        plain = va.varlen_attention_reference(q, k, v, segs, window, rope, causal=True)
+        err = segment_rel_err(got, plain, lens.tolist())
+        if not err < VARLEN_REL_ERR:
+            raise AssertionError(f"causal GQA varlen_attention ({kind}) is {err:.2e} from its "
+                                 f"plain version, past {VARLEN_REL_ERR}")
+
+        def fn():
+            return va.varlen_attention(q, k, v, segs, window, rope=rope, causal=True)
+
+        event_ms = time_ms(fn, 50)
+        _, ms = call_device_ms(fn, KERNELS["varlen_attention"][3], 50)
+        plain_ms = time_ms(lambda: va.varlen_attention_reference(
+            q, k, v, segs, window, rope, causal=True), 3)
+        pairs = float(moe_work.causal_pairs(lens, window).sum())
+        flops, nbytes = 4.0 * h * d * pairs, 2.0 * t * d * (2 * h + 2 * hk)
+        bound = 1e3 * max(flops / BF16_TC_OPS_PER_S, nbytes / HBM_BYTES_PER_S)
+        bound_by = "operations" if flops / BF16_TC_OPS_PER_S >= nbytes / HBM_BYTES_PER_S \
+            else "bytes"
+        library_ms, library_err, library_note = None, None, None
+        try:
+            call, lib_out = varlen_library(q, k, v, segs, window, rope, causal=True)
+            torch.cuda.synchronize()
+            library_err = segment_rel_err(lib_out, plain, lens.tolist())
+            library_ms = time_ms(call, 50)
+        except Exception as exc:  # the yardstick only: record why it did not run
+            library_note = f"{type(exc).__name__}: {str(exc)[:200]}"
+        log(f"  varlen_attention causal GQA {kind} at {t} tokens: within {err:.2e} of its plain "
+            f"version, kernel {ms:.4f} ms on the device ({event_ms:.4f} ms per wrapper call by "
+            f"CUDA events), {100 * bound / ms:.1f}% of its bound {bound:.4f} ms ({bound_by}), "
+            f"plain {plain_ms:.3f} ms, library "
+            + (f"flex_attention {library_ms:.4f} ms ({library_err:.2e} from the plain version)"
+               if library_ms is not None else f"not measured ({library_note})"))
+        kinds.append(dict(kind=f"causal GQA {kind}", window=window, tokens=t, segments=GQA_ROWS,
+                          heads=[h, hk, d], max_rel_err=err, ms=ms, event_ms=event_ms,
+                          plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                          roofline_pct=100 * bound / ms, library_ms=library_ms,
+                          library_rel_err=library_err, library_note=library_note))
+    return kinds
+
+
+def moe_library(rows, ends, gate_up_w, down_w):
+    """The library's part of M1 alone: the two bare grouped products on the
+    sorted rows (no gather, SwiGLU, weighting or combine, so its figure is
+    the more favourable)."""
+    i = down_w.shape[1]
+
+    def call():
+        gu = torch._grouped_mm(rows, gate_up_w, offs=ends)
+        return torch._grouped_mm(gu[:, :i].contiguous(), down_w, offs=ends)
+
+    return call
+
+
+def phase_moe() -> dict:
+    """M1 against its plain version at Mellum's widths (MOE_WIDTHS) and
+    MOE_TOKENS tokens, on bf16 weights N(0, 0.02^2) and a bf16 router:
+    each token's output within MOE_REL_ERR of moe_gemm_reference's by norm,
+    three Triton launches counted a call. Times: the whole call's device
+    time (every kernel, torch.profiler) and its three passes' alone, by CUDA
+    events, the plain version's (one torch.mm per expert), the library's
+    two bare products, and the bound (harness/moe_work.experts_bound_s for
+    one layer: 6 x A x h x i FLOPs at the bf16 peak, or the routed
+    experts' weights and the activations once at HBM's rate). Also each
+    device kernel of one call by name, for the trace's readers."""
+    h, i, e, top_k = MOE_WIDTHS
+    wd = moe_work.Widths(h, 32, 4, 128, e, top_k, i, 1024, (mellum.FULL,))
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    gate_up = torch.randn((e, h, 2 * i), generator=gen, device="cuda").mul_(0.02)
+    gate_up = gate_up.to(torch.bfloat16)
+    down = torch.randn((e, i, h), generator=gen, device="cuda").mul_(0.02).to(torch.bfloat16)
+    router = (torch.randn((h, e), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+    rows_out = []
+    for tokens in MOE_TOKENS:
+        y = torch.randn((tokens, h), generator=gen, device="cuda")
+        r = moe.route(y, router, top_k)
+        moe.moe_gemm.launches = 0
+        got = moe.moe_gemm(y, r, gate_up, down)
+        torch.cuda.synchronize()
+        if moe.moe_gemm.launches != 3:
+            raise AssertionError(f"moe_gemm counted {moe.moe_gemm.launches} launches, not 3")
+        want = moe.moe_gemm_reference(y, r, gate_up, down)
+        err = float(((got - want).norm(dim=1) / want.norm(dim=1)).max())
+        if not err < MOE_REL_ERR:
+            raise AssertionError(f"moe_gemm at {tokens} tokens is {err:.2e} from its plain "
+                                 f"version, past {MOE_REL_ERR}")
+        off = moe.moe_gemm(y, r, gate_up.roll(1, 0), down.roll(1, 0))
+        off_err = float(((off - want).norm(dim=1) / want.norm(dim=1)).max())
+        if not off_err > 0.1:
+            raise AssertionError(f"moe_gemm on the next expert's weights is only {off_err:.2e} "
+                                 "off: the check cannot tell a misrouted kernel")
+
+        def fn():
+            return moe.moe_gemm(y, r, gate_up, down)
+
+        event_ms = time_ms(fn, 20)
+        ms, passes_ms = call_device_ms(fn, KERNELS["moe_gemm"][3], 20)
+        by_kernel: dict = {}
+        for ev in _device_events(fn, 1):
+            by_kernel[ev.key[:160]] = by_kernel.get(ev.key[:160], 0.0) + \
+                ev.self_device_time_total / 1e3
+        plain_ms = time_ms(lambda: moe.moe_gemm_reference(y, r, gate_up, down), 3)
+        rows = y[r.order // top_k].to(torch.bfloat16)
+        library_ms = time_ms(moe_library(rows, r.offsets[1:].to(torch.int32), gate_up, down), 20)
+        a = tokens * top_k
+        flops = 6.0 * a * h * i
+        bound = 1e3 * moe_work.experts_bound_s(tokens, wd)
+        bound_by = "operations" if 1e3 * flops / BF16_TC_OPS_PER_S >= bound else "bytes"
+        log(f"  moe_gemm at {tokens} tokens ({a} assignments, {e} experts, {h} x {i}): within "
+            f"{err:.2e} of its plain version (next expert's weights {off_err:.2e}), "
+            f"{ms:.4f} ms on the device, its passes {passes_ms:.4f} ({event_ms:.4f} ms per call "
+            f"by CUDA events), {100 * bound / ms:.1f}% of its bound {bound:.4f} ms "
+            f"({bound_by}), plain {plain_ms:.3f} ms, library (two bare torch._grouped_mm) "
+            f"{library_ms:.4f} ms; kernels {json.dumps(by_kernel)}")
+        rows_out.append(dict(tokens=tokens, assignments=a, max_rel_err=err,
+                             next_expert_rel_err=off_err, ms=ms, passes_ms=passes_ms,
+                             event_ms=event_ms, plain_ms=plain_ms, bound_ms=bound,
+                             bound_by=bound_by, roofline_pct=100 * bound / ms,
+                             library_ms=library_ms, kernels_ms=by_kernel))
+        del y, r, got, want, off, rows
+    head = rows_out[0]
+    return dict(max_rel_err=max(x["max_rel_err"] for x in rows_out), ms=head["ms"],
+                event_ms=head["event_ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+                bound_by=head["bound_by"], library_ms=head["library_ms"],
+                library="torch._grouped_mm twice (gate and up, then down), bare",
+                shape=[head["tokens"], h, i, e, top_k], sizes=rows_out)
 
 
 def make_corpus(n, dim, n_queries, seed=0):
@@ -2661,6 +2849,8 @@ def main() -> int:
     k4a, k4b = phase_pairwise()
     k5 = phase_row_gather()
     v1 = phase_varlen()
+    v1["kinds"] += phase_varlen_gqa()
+    m1 = phase_moe()
     topk = phase_smallest_k()
     torch.cuda.empty_cache()
     log(f"  phases 1-2: {time.perf_counter() - t_start:.1f} s")
@@ -2736,7 +2926,7 @@ def main() -> int:
     kernels = []
     for name, fig in (("hop_merge", k1), ("gated_adc", k2), ("adc_scan", k3),
                       ("adc_scan_smallest", k3s), ("pairwise_l2", k4a), ("pairwise_neg_dot", k4b), ("row_gather", k5),
-                      ("varlen_attention", v1)):
+                      ("varlen_attention", v1), ("moe_gemm", m1)):
         _, source, replaces, _ = KERNELS[name]
         by_path = {path: out["launches"][name] for path, out in paths.items()}
         route = "cuda" if source.endswith(".cu") else "triton"

@@ -1,4 +1,5 @@
-"""Encoder models: BERT-family and ModernBERT sentence encoders and the
+"""Encoder models: BERT-family and ModernBERT sentence encoders, Mellum (a
+mixture-of-experts decoder pooled at its last token) and the
 encoder-backed embedding provider (recompute during search)."""
 
 from islands_tpu_torch.models.bert import BertConfig, BertModel, encode, init_params
@@ -11,6 +12,7 @@ from islands_tpu_torch.models.encoder import (
     SimpleTokenizer,
     TextEncoder,
 )
+from islands_tpu_torch.models.mellum import MellumConfig, MellumModel
 from islands_tpu_torch.models.modernbert import ModernBertConfig, ModernBertModel
 from islands_tpu_torch.models.provider import EncoderEmbeddingProvider
 
@@ -21,6 +23,8 @@ __all__ = [
     "EncoderEmbeddingProvider",
     "HashEmbedder",
     "IMPLEMENTED_ARCHITECTURES",
+    "MellumConfig",
+    "MellumModel",
     "ModelArchitecture",
     "ModernBertConfig",
     "ModernBertModel",

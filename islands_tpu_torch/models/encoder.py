@@ -2,7 +2,7 @@
 
 Port of islands_tpu/models/encoder.py: model presets with dimensions,
 `embed_texts`, mean pooling + L2 normalize, and the architecture families
-(BERT and ModernBERT run; the others are recognized and raise). The
+(BERT, ModernBERT and Mellum run; the others are recognized and raise). The
 `HashEmbedder` is the device-free stand-in embedder.
 
 `tokenize` pads to the reference's length buckets, so ids and masks equal
@@ -12,6 +12,14 @@ modernbert-base) and runs them unpadded: `embed_texts` lays their tokens
 end to end on the host for `modernbert.forward_packed`, and `bert.encode`
 (so `encode_tokens`) packs each padded row's valid tokens; `tokenize` pads
 to the batch's longest text, not to a bucket. Runs on CUDA unless `device="cpu"`.
+
+Mellum (models/mellum.py, a mixture-of-experts decoder pooled at its last
+token) takes the packed route as ModernBERT does. Its weights are device
+tensors: `TextEncoder(weights, MellumConfig(...), device=...)` keeps the
+dict it is given (moving a tensor only if it lies on another device), and
+`from_preset` draws them on the encoder's device, so its 11.9B parameters
+never pass through the host. The port has no loader of Mellum's published
+checkpoint (`from_pretrained` raises for it).
 """
 
 from __future__ import annotations
@@ -29,17 +37,19 @@ import torch
 from islands_tpu_torch import convert
 from islands_tpu_torch.device import resolve_device, to_device
 from islands_tpu_torch.models import bert as bert_mod
+from islands_tpu_torch.models import mellum as mellum_mod
 from islands_tpu_torch.models import modernbert as modernbert_mod
 from islands_tpu_torch.utils.tracing import region
 
 
 class ModelArchitecture(str, enum.Enum):
-    """Embedder architecture families. BERT and ModernBERT have forwards
-    (models/bert.py, models/modernbert.py); the others are recognized and
-    raise until an implementation lands."""
+    """Embedder architecture families. BERT, ModernBERT and Mellum have
+    forwards (models/bert.py, models/modernbert.py, models/mellum.py); the
+    others are recognized and raise until an implementation lands."""
 
     BERT = "bert"
     MODERNBERT = "modernbert"
+    MELLUM = "mellum"
     JINA_BERT = "jina-bert"
     CLIP = "clip"
     COLBERT = "colbert"
@@ -52,6 +62,7 @@ class ModelArchitecture(str, enum.Enum):
         n = name.lower()
         for pat, arch in (
             ("modernbert", ModelArchitecture.MODERNBERT),
+            ("mellum", ModelArchitecture.MELLUM),
             ("colpali", ModelArchitecture.COLPALI),
             ("colbert", ModelArchitecture.COLBERT),
             ("splade", ModelArchitecture.SPLADE),
@@ -64,7 +75,7 @@ class ModelArchitecture(str, enum.Enum):
 
 
 IMPLEMENTED_ARCHITECTURES = frozenset(
-    {ModelArchitecture.BERT, ModelArchitecture.MODERNBERT}
+    {ModelArchitecture.BERT, ModelArchitecture.MODERNBERT, ModelArchitecture.MELLUM}
 )
 
 #: Model presets: name -> (config factory, embedding dimension)
@@ -78,6 +89,8 @@ PRESETS = {
     "modernbert-base": (modernbert_mod.ModernBertConfig.modernbert_base, 768),
     "modernbert-large": (modernbert_mod.ModernBertConfig.modernbert_large, 1024),
     "modernbert-tiny-test": (modernbert_mod.ModernBertConfig.tiny_test, 64),
+    "mellum2-12b-a2.5b": (mellum_mod.MellumConfig.mellum2_12b_a2_5b, 2304),
+    "mellum-tiny-test": (mellum_mod.MellumConfig.tiny_test, 64),
 }
 
 #: Sequence-length buckets (the largest is the max_seq_length of 256).
@@ -137,7 +150,8 @@ class HfTokenizer:
 class EncoderConfig:
     """Encoding knobs: batch size, max length, normalization, buckets.
     `max_seq_length` None is the architecture's own limit: 256 tokens (the
-    largest bucket) for BERT, `max_position_embeddings` for ModernBERT."""
+    largest bucket) for BERT, `max_position_embeddings` for the packed
+    architectures (ModernBERT, Mellum)."""
 
     max_seq_length: int | None = None
     batch_size: int = 64
@@ -145,19 +159,31 @@ class EncoderConfig:
     buckets: tuple[int, ...] = DEFAULT_BUCKETS
 
 
-def _is_modernbert(model_config) -> bool:
-    return isinstance(model_config, modernbert_mod.ModernBertConfig)
+def _architecture(model_config) -> ModelArchitecture:
+    if isinstance(model_config, modernbert_mod.ModernBertConfig):
+        return ModelArchitecture.MODERNBERT
+    if isinstance(model_config, mellum_mod.MellumConfig):
+        return ModelArchitecture.MELLUM
+    return ModelArchitecture.BERT
 
 
 def architecture_module(model_config):
-    """models/modernbert.py for a ModernBertConfig, else models/bert.py: the
-    module whose `init_params` draws the architecture's weights."""
-    return modernbert_mod if _is_modernbert(model_config) else bert_mod
+    """models/modernbert.py for a ModernBertConfig, models/mellum.py for a
+    MellumConfig, else models/bert.py: the module whose `init_params` draws
+    the architecture's weights (and, for the packed ones, whose
+    `token_chunks` and `forward_packed` the text encoder packs with)."""
+    return {ModelArchitecture.MODERNBERT: modernbert_mod,
+            ModelArchitecture.MELLUM: mellum_mod}.get(_architecture(model_config), bert_mod)
 
 
 def build_model(params: dict, model_config, device=None) -> torch.nn.Module:
-    """The architecture's module for reference-layout parameters."""
-    if _is_modernbert(model_config):
+    """The architecture's module for its parameters: reference-layout numpy
+    arrays for BERT and ModernBERT, a dict of tensors kept as given for
+    Mellum."""
+    arch = _architecture(model_config)
+    if arch is ModelArchitecture.MELLUM:
+        return mellum_mod.MellumModel(model_config, params, device)
+    if arch is ModelArchitecture.MODERNBERT:
         return convert.modernbert_from_numpy(params, model_config, device)
     return convert.bert_from_numpy(params, model_config, device)
 
@@ -186,8 +212,7 @@ class TextEncoder:
                  config: EncoderConfig | None = None, device=None):
         self.device = resolve_device(device)
         self.model_config = model_config
-        self.architecture = (ModelArchitecture.MODERNBERT if _is_modernbert(model_config)
-                             else ModelArchitecture.BERT)
+        self.architecture = _architecture(model_config)
         self.model = build_model(params, model_config, self.device)
         self.tokenizer = tokenizer or SimpleTokenizer(model_config.vocab_size)
         config = config or EncoderConfig()
@@ -211,8 +236,11 @@ class TextEncoder:
             raise ValueError(f"unknown preset {name!r}; have {sorted(PRESETS)}")
         factory, _ = PRESETS[name]
         mc = factory()
-        return TextEncoder(architecture_module(mc).init_params(mc, seed), mc, config=config,
-                           device=device)
+        if isinstance(mc, mellum_mod.MellumConfig):  # drawn where it runs
+            params = mellum_mod.init_params(mc, seed, resolve_device(device))
+        else:
+            params = architecture_module(mc).init_params(mc, seed)
+        return TextEncoder(params, mc, config=config, device=device)
 
     @staticmethod
     def from_pretrained(path: str | Path, config: EncoderConfig | None = None,
@@ -226,6 +254,10 @@ class TextEncoder:
         if cfg_path.exists():
             model_type = json.loads(cfg_path.read_text()).get("model_type", "")
         arch = ModelArchitecture.detect(model_type or str(path))
+        if arch is ModelArchitecture.MELLUM:
+            raise NotImplementedError(
+                "architecture 'mellum' runs from weights handed to TextEncoder; the port "
+                "has no loader of its published checkpoint")
         if arch not in IMPLEMENTED_ARCHITECTURES:
             raise NotImplementedError(
                 f"architecture {arch.value!r} is recognized but has no forward "
@@ -248,8 +280,8 @@ class TextEncoder:
 
     @property
     def packed(self) -> bool:
-        """True where the model runs unpadded (ModernBERT)."""
-        return self.architecture is ModelArchitecture.MODERNBERT
+        """True where the model runs unpadded (ModernBERT, Mellum)."""
+        return self.architecture in (ModelArchitecture.MODERNBERT, ModelArchitecture.MELLUM)
 
     # -- tokenization ------------------------------------------------------
 
@@ -298,19 +330,21 @@ class TextEncoder:
 
     def _embed_packed(self, seqs: list[list[int]]) -> np.ndarray:
         """Token lists -> [n, dim] float32 through the packed forward: each
-        run of whole texts of at most `modernbert.PACK_TOKENS` tokens is
-        laid end to end on the host and sent to the device as one flat
-        [tokens] table (traced as "encoder.pack"), never a padded one."""
+        run of whole texts of at most the architecture's `PACK_TOKENS`
+        tokens (its `token_chunks`) is laid end to end on the host and sent
+        to the device as one flat [tokens] table (traced as
+        "encoder.pack"), never a padded one."""
+        mod = architecture_module(self.model_config)
         lens = np.array([len(sq) for sq in seqs], dtype=np.int64)
         out = np.zeros((len(seqs), self.dimension), dtype=np.float32)
-        for s, e in modernbert_mod.token_chunks(lens):
+        for s, e in mod.token_chunks(lens):
             with region("encoder.pack"):
                 flat = np.fromiter(itertools.chain.from_iterable(seqs[s:e]), dtype=np.int32,
                                    count=int(lens[s:e].sum()))
                 ids = to_device(flat, self.device, torch.int32)
                 segs = modernbert_mod.Segments.from_lengths(lens[s:e], self.device)
             with region("encoder.forward"):
-                pooled = modernbert_mod.forward_packed(self.model, ids, segs)
+                pooled = mod.forward_packed(self.model, ids, segs)
             if self.config.normalize:
                 pooled = torch.nn.functional.normalize(pooled, dim=-1, eps=1e-12)
             out[s:e] = pooled.cpu().numpy()

@@ -8,11 +8,12 @@ The reference's provider always runs the BERT forward, whatever the
 encoder's architecture, so a provider over a ModernBERT encoder fails there.
 This one runs the encoder's own module (models/bert.encode takes either).
 
-Over a ModernBERT encoder (`TextEncoder.packed`) the rows are not padded:
-`embed` reads the gathered rows' lengths to the host once, and
-`ModernBertModel.pooled_rows` packs their valid tokens end to end
-(`modernbert.pack_rows`) and runs `modernbert.forward_packed` on chunks of
-whole rows of at most `modernbert.PACK_TOKENS` tokens. A BERT encoder
+Over a packed encoder (`TextEncoder.packed`: ModernBERT, Mellum) the rows
+are not padded: `embed` reads the gathered rows' lengths to the host once,
+and the model's `pooled_rows` packs their valid tokens end to end
+(`modernbert.pack_rows`) and runs its `forward_packed` on chunks of whole
+rows of at most its `PACK_TOKENS` tokens (mean pooled for ModernBERT, the
+last token's state for Mellum). A BERT encoder
 keeps its padded rows and its chunks of EMBED_CHUNK_BATCHES batches; on
 CUDA a chunk of a recurring, small enough shape replays `bert.encode`'s
 graph of it.

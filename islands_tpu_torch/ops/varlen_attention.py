@@ -1,4 +1,5 @@
-"""Attention over packed variable-length segments, global or in a band.
+"""Attention over packed variable-length segments, global or in a band,
+bidirectional or causal, with as many or fewer key heads than query heads.
 
 ModernBERT's encoder on unpadded sequences: the tokens of n segments lie
 end to end in [T, heads, d] tensors, segment j holding rows
@@ -12,6 +13,14 @@ segment; with `window` w (a local layer) only to those at positions p with
 segment) q and k are rotated first, in float32, and rounded to their dtype,
 as the JAX package's forward rotates them. Scale 1/sqrt(d); softmax
 statistics and the sums in float32; the output in the inputs' dtype.
+
+Mellum's decoder (models/mellum.py) takes the same kernel in two more
+modes. `causal=True`: a query at position i attends to keys j <= i, and
+with `window` w only to those with i - j < w (HF's sliding window: w keys,
+the query's own among them). Grouped-query attention: k and v may carry
+fewer heads than q, their count dividing q's; query head h reads key head
+h // (q heads / k heads). RoPE tables may carry a magnitude factor (YaRN's
+`attention_factor` multiplies cos and sin, so the scores by its square).
 
 It replaces no TPU kernel: the JAX package computes every ModernBERT layer
 as dense attention over a padded batch with a [B, 1, L, L] band bias
@@ -50,6 +59,12 @@ rotated once a layer by a small kernel, `varlen_attn_rope_k`, into a
 the attention's time counts it). Rotating k inside the attention loop was
 measured 1.7x slower for a global layer: the rotated tile has to pass
 through registers, which stops its loads from streaming into shared memory.
+A causal program visits only the key blocks at or before its last query
+(and, with a window, not below its first query - w + 1), and masks the
+diagonal block, so a causal segment costs about half a global one. Causal
+and grouped-query modes are `tl.constexpr` flags: ModernBERT's launches
+(bidirectional, one key head per query head) compile to the code they
+compiled to before the flags existed.
 """
 
 from __future__ import annotations
@@ -64,6 +79,7 @@ import torch
 #: module's note), and tokens a program of the k rotation takes.
 BLOCK_M_GLOBAL, BLOCK_N_GLOBAL = 128, 64
 BLOCK_M_LOCAL, BLOCK_N_LOCAL = 64, 32
+BLOCK_M_CAUSAL, BLOCK_N_CAUSAL = 64, 64
 ROPE_BLOCK_T = 64
 
 
@@ -140,12 +156,15 @@ def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tens
 
 def varlen_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                segs: Segments, window: int | None = None,
-                               rope: tuple | None = None) -> torch.Tensor:
+                               rope: tuple | None = None, causal: bool = False) -> torch.Tensor:
     """Plain version: per segment, RoPE (if given), dense float32 scores
-    with keys outside the segment's band set to -inf, softmax, the weighted
-    sum of v, rounded to q's dtype. q, k, v [T, heads, d]."""
+    with keys outside the segment's band (or, `causal`, after the query or
+    `window` or more before it) set to -inf, softmax, the weighted sum of v,
+    rounded to q's dtype. q [T, heads, d]; k, v [T, heads / g, d], query
+    head h reading key head h // g."""
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     scale = 1.0 / math.sqrt(q.shape[-1])
+    group = q.shape[1] // k.shape[1]
     start = 0
     for s in segs.lengths.tolist():
         if s == 0:
@@ -154,27 +173,34 @@ def varlen_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         qs, ks = q[sl], k[sl]
         if rope is not None:
             qs, ks = _rotate(qs, rope[0][:s], rope[1][:s]), _rotate(ks, rope[0][:s], rope[1][:s])
+        ks, vs = ks.repeat_interleave(group, dim=1), v[sl].repeat_interleave(group, dim=1)
         scores = torch.einsum("qhd,khd->hqk", qs.float(), ks.float()) * scale
-        if window is not None:
-            pos = torch.arange(s, device=q.device)
-            far = (pos[:, None] - pos[None, :]).abs() > window
+        pos = torch.arange(s, device=q.device)
+        gap = pos[:, None] - pos[None, :]
+        if causal:
+            far = (gap < 0) if window is None else (gap < 0) | (gap >= window)
+        else:
+            far = None if window is None else gap.abs() > window
+        if far is not None:
             scores = scores.masked_fill(far[None], float("-inf"))
         p = torch.softmax(scores, dim=-1)
-        out[sl] = torch.einsum("hqk,khd->qhd", p, v[sl].float()).to(q.dtype)
+        out[sl] = torch.einsum("hqk,khd->qhd", p, vs.float()).to(q.dtype)
         start += s
     return out
 
 
-def _check(q, k, v, window, rope) -> None:
-    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"varlen_attention wants q, k, v [T, heads, d] of one shape, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+def _check(q, k, v, window, rope, causal) -> None:
+    if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape or k.shape[0] != q.shape[0] \
+            or k.shape[2] != q.shape[2] or k.shape[1] == 0 or q.shape[1] % k.shape[1]:
+        raise ValueError(f"varlen_attention wants q [T, heads, d] and k, v [T, kv_heads, d] "
+                         f"with kv_heads dividing heads, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("varlen_attention wants q, k, v of one dtype")
     if k.device != q.device or v.device != q.device:
         raise ValueError("varlen_attention inputs must share one device")
-    if window is not None and window < 0:
-        raise ValueError(f"window must be >= 0 or None, got {window}")
+    if window is not None and (window < 0 or (causal and window < 1)):
+        raise ValueError(f"window must be >= 0 (>= 1 causal) or None, got {window}")
     if rope is not None:
         for t in rope:
             if t.dim() != 2 or t.shape[1] != q.shape[2] or t.dtype != torch.float32 \
@@ -198,9 +224,14 @@ def _build_kernel():
                     stride_qt, stride_qh, stride_kt, stride_kh, stride_vt, stride_vh,
                     stride_ot, stride_oh, qk_scale, window,
                     LOCAL: tl.constexpr, ROPE: tl.constexpr, HEAD_DIM: tl.constexpr,
-                    BLOCK_M: tl.constexpr, BLOCK_N: tl.constexpr):
+                    BLOCK_M: tl.constexpr, BLOCK_N: tl.constexpr,
+                    CAUSAL: tl.constexpr = False, GROUP: tl.constexpr = 1):
         blk = tl.program_id(0)
         head = tl.program_id(1)
+        if GROUP > 1:
+            kv_head = head // GROUP
+        else:
+            kv_head = head
         seg = tl.load(blocks_ptr + 2 * blk)
         q0 = tl.load(blocks_ptr + 2 * blk + 1)
         start = tl.load(cu_ptr + seg)
@@ -221,7 +252,14 @@ def _build_kernel():
             sq = tl.load(sin_ptr + rq_at, mask=m_ok[:, None], other=0.0)
             q = (q.to(tl.float32) * cq + sign[None, :] * q_sw.to(tl.float32) * sq
                  ).to(q_ptr.dtype.element_ty)
-        if LOCAL:
+        if CAUSAL:
+            hi = tl.minimum(q0 + BLOCK_M, seqlen)
+            if LOCAL:
+                lo = tl.maximum(q0 - window + 1, 0)
+                lo = (lo // BLOCK_N) * BLOCK_N
+            else:
+                lo = 0
+        elif LOCAL:
             lo = tl.maximum(q0 - window, 0)
             lo = (lo // BLOCK_N) * BLOCK_N
             hi = tl.minimum(q0 + BLOCK_M + window, seqlen)
@@ -235,11 +273,16 @@ def _build_kernel():
             offs_n = n0 + tl.arange(0, BLOCK_N)
             n_ok = offs_n < seqlen
             k_rows = (start + offs_n).to(tl.int64)
-            k_at = k_ptr + k_rows[:, None] * stride_kt + head * stride_kh
+            k_at = k_ptr + k_rows[:, None] * stride_kt + kv_head * stride_kh
             kt = tl.load(k_at + offs_d[None, :], mask=n_ok[:, None], other=0.0)
             qk = tl.dot(q, tl.trans(kt)) * qk_scale
             keep = n_ok[None, :]
-            if LOCAL:
+            if CAUSAL:
+                gap = offs_m[:, None] - offs_n[None, :]
+                keep = keep & (gap >= 0)
+                if LOCAL:
+                    keep = keep & (gap < window)
+            elif LOCAL:
                 gap = offs_m[:, None] - offs_n[None, :]
                 keep = keep & (gap <= window) & (gap >= -window)
             qk = tl.where(keep, qk, float("-inf"))
@@ -248,7 +291,7 @@ def _build_kernel():
             alpha = tl.exp2(m_i - m_use)
             p = tl.exp2(qk - m_use[:, None])
             l_i = l_i * alpha + tl.sum(p, 1)
-            v_at = v_ptr + k_rows[:, None] * stride_vt + head * stride_vh + offs_d[None, :]
+            v_at = v_ptr + k_rows[:, None] * stride_vt + kv_head * stride_vh + offs_d[None, :]
             vt = tl.load(v_at, mask=n_ok[:, None], other=0.0)
             acc = tl.dot(p.to(vt.dtype), vt, acc * alpha[:, None])
             m_i = m_new
@@ -284,24 +327,28 @@ def _build_kernel():
 
 
 def varlen_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, segs: Segments,
-                     window: int | None = None, rope: tuple | None = None) -> torch.Tensor:
-    """Attention of q over k, v [T, heads, d] within each packed segment of
-    `segs` (which holds the offsets and the block tables), over the whole
-    segment (`window` None) or a band of +/- `window` positions, RoPE first
-    if `rope` is given. -> [T, heads, d] in q's dtype. q, k and v may be
-    strided views (the columns of one fused product); the last axis must be
-    contiguous."""
-    _check(q, k, v, window, rope)
+                     window: int | None = None, rope: tuple | None = None,
+                     causal: bool = False) -> torch.Tensor:
+    """Attention of q [T, heads, d] over k, v [T, kv_heads, d] (kv_heads
+    dividing heads) within each packed segment of `segs` (which holds the
+    offsets and the block tables): over the whole segment (`window` None)
+    or a band of +/- `window` positions; with `causal`, over the keys at or
+    before the query (and, with `window`, fewer than `window` before it).
+    RoPE first if `rope` is given. -> [T, heads, d] in q's dtype. q, k and
+    v may be strided views (the columns of one fused product); the last
+    axis must be contiguous."""
+    _check(q, k, v, window, rope, causal)
     if segs.tokens != q.shape[0]:
         raise ValueError(f"segments hold {segs.tokens} tokens, q has {q.shape[0]}")
     if rope is not None and rope[0].shape[0] < segs.max_len:
         raise ValueError(f"rope tables of {rope[0].shape[0]} positions, a segment of "
                          f"{segs.max_len}")
     if q.device.type == "cpu":
-        return varlen_attention_reference(q, k, v, segs, window, rope)
+        return varlen_attention_reference(q, k, v, segs, window, rope, causal)
     if q.device.type != "cuda":
         raise ValueError(f"varlen_attention runs on cuda or cpu, not {q.device}")
     t, heads, d = q.shape
+    kv_heads = k.shape[1]
     if q.dtype not in (torch.bfloat16, torch.float16):
         raise TypeError(f"the varlen_attn kernel takes bf16 or fp16, got {q.dtype}")
     if d not in (32, 64, 128) or any(x.stride(2) != 1 for x in (q, k, v)):
@@ -311,16 +358,24 @@ def varlen_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, segs: Se
     if t == 0:
         return out
     local = window is not None
-    block_m = BLOCK_M_LOCAL if local else BLOCK_M_GLOBAL
+    if causal:
+        block_m, block_n, warps = BLOCK_M_CAUSAL, BLOCK_N_CAUSAL, 4
+    elif local:
+        block_m, block_n, warps = BLOCK_M_LOCAL, BLOCK_N_LOCAL, 4
+    else:
+        block_m, block_n, warps = BLOCK_M_GLOBAL, BLOCK_N_GLOBAL, 8
     blocks = segs.blocks(block_m)
     attn, rope_k = _build_kernel()
+    # ModernBERT's launches pass neither flag, so they compile as before.
+    modes = {} if not causal and kv_heads == heads else \
+        {"CAUSAL": causal, "GROUP": heads // kv_heads}
     with torch.cuda.device(q.device):
         if rope is None:
             cos = sin = out  # never read
         else:
             cos, sin = (x.contiguous() for x in rope)
-            k_rot = torch.empty((t, heads, d), dtype=k.dtype, device=k.device)
-            rope_k[(_cdiv(t, ROPE_BLOCK_T), heads)](
+            k_rot = torch.empty((t, kv_heads, d), dtype=k.dtype, device=k.device)
+            rope_k[(_cdiv(t, ROPE_BLOCK_T), kv_heads)](
                 k, k_rot, segs.positions, cos, sin, t, k.stride(0), k.stride(1),
                 k_rot.stride(0), k_rot.stride(1), HEAD_DIM=d, BLOCK_T=ROPE_BLOCK_T,
                 num_warps=4)
@@ -331,8 +386,7 @@ def varlen_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, segs: Se
             v.stride(0), v.stride(1), out.stride(0), out.stride(1),
             (1.0 / math.sqrt(d)) * 1.4426950408889634, int(window or 0),
             LOCAL=local, ROPE=rope is not None, HEAD_DIM=d,
-            BLOCK_M=block_m, BLOCK_N=BLOCK_N_LOCAL if local else BLOCK_N_GLOBAL,
-            num_warps=4 if local else 8, num_stages=3)
+            BLOCK_M=block_m, BLOCK_N=block_n, num_warps=warps, num_stages=3, **modes)
     varlen_attention.launches += 1
     return out
 

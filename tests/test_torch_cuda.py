@@ -987,3 +987,172 @@ def test_split_hop_graph_with_encoder_graphs_answers_as_eager(recompute_index, b
     finally:
         if kept is not None:
             model.encode_graphs = kept
+
+
+# -- Mellum: causal grouped-query varlen attention and the grouped expert GEMM --
+
+MELLUM_LENGTHS = [1, 48, 104, 192, 17, 1100, 2500, 64]
+
+
+def _seg_rel_err(got, want, lengths):
+    """Each segment's ||got - want|| / ||want|| (float64)."""
+    out, s = [], 0
+    for n in lengths:
+        g, w = got[s:s + n].double(), want[s:s + n].double()
+        out.append(float((g - w).norm() / w.norm().clamp(min=1e-30)))
+        s += n
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sliding_attention", "full_attention"])
+def test_varlen_attn_causal_gqa_matches_plain_version(kind):
+    """Mellum's attention (32 query heads, 4 key heads of 128, causal; the
+    sliding kind within a window of 1,024, the full kind with YaRN's tables
+    and their magnitude factor) on segments of 1-2,500 tokens against the
+    plain version on the same bf16 inputs. Each segment's relative error
+    stays under 5e-3, as for ModernBERT's modes (tests/test_torch_varlen_cuda.py):
+    q, k after RoPE and the output are rounded to bf16 on both sides
+    (2^-9 / sqrt(3) a side), and the kernel rounds the probabilities to bf16
+    before the value product (about 2^-9 again). A key block dropped or the
+    causal edge moved by one reads far above it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    from islands_tpu_torch.models import mellum
+    from islands_tpu_torch.ops import varlen_attention as va
+
+    cfg = mellum.MellumConfig()
+    t = sum(MELLUM_LENGTHS)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    qkv = torch.randn((t, 5120), generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = qkv[:, :4096].view(t, 32, 128), qkv[:, 4096:4608].view(t, 4, 128), \
+        qkv[:, 4608:].view(t, 4, 128)
+    segs = va.Segments.from_lengths(MELLUM_LENGTHS, "cuda")
+    rope = tuple(x.cuda() for x in mellum.rope_tables(cfg, kind, 4096))
+    window = cfg.sliding_window if kind == "sliding_attention" else None
+    before = va.varlen_attention.launches
+    got = va.varlen_attention(q, k, v, segs, window, rope=rope, causal=True)
+    want = va.varlen_attention_reference(q, k, v, segs, window, rope, causal=True)
+    torch.cuda.synchronize()
+    assert va.varlen_attention.launches == before + 1
+    errs = _seg_rel_err(got, want, MELLUM_LENGTHS)
+    assert max(errs) < 5e-3, errs
+    # the power of the check: the other mode's answer is far off where the
+    # window binds (2,500 tokens), and a bidirectional one everywhere
+    other = va.varlen_attention_reference(q, k, v, segs, None if window else 1024, rope,
+                                          causal=True)
+    assert _seg_rel_err(other, want, MELLUM_LENGTHS)[6] > 0.05
+    bidir = va.varlen_attention_reference(q, k, v, segs, None, rope)
+    assert min(_seg_rel_err(bidir, want, MELLUM_LENGTHS)[1:4]) > 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,h,i,e,top_k", [
+    (3300, 2304, 896, 64, 8),  # a recompute hop at Mellum's published widths
+    (17, 2304, 896, 64, 8),    # the compile warm-up's chunk: most experts get 1-3 rows
+    (500, 256, 64, 8, 2),      # narrow blocks
+])
+def test_moe_gemm_matches_plain_version(t, h, i, e, top_k):
+    """The grouped products and the three Triton passes against their plain
+    version (one torch.mm per expert) on the same bf16 operands: each
+    token's relative error under 4e-3. Both round the sorted rows, the
+    [gate | up] products, the SwiGLU and the down products to bf16 at the
+    same places and sum the weighted rows in float32, so they differ by the
+    order of the sums, which can move a rounding by one bf16 ulp (2^-8
+    relative) on a few elements. Routing and every launch read nothing back
+    to the host (CUDA's sync debug mode raises on a read)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    from islands_tpu_torch.ops import moe
+
+    gen = torch.Generator(device="cuda").manual_seed(t)
+    gate_up = torch.randn((e, h, 2 * i), generator=gen, device="cuda").mul_(0.02)
+    gate_up = gate_up.to(torch.bfloat16)
+    down = torch.randn((e, i, h), generator=gen, device="cuda").mul_(0.02).to(torch.bfloat16)
+    y = torch.randn((t, h), generator=gen, device="cuda")
+    router = (torch.randn((h, e), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+    moe.moe_gemm(y, moe.route(y, router, top_k), gate_up, down)  # builds the kernels
+    base = torch.randn((t, h), generator=gen, device="cuda")
+    out = base.clone()
+    before = moe.moe_gemm.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        r = moe.route(y, router, top_k)
+        got = moe.moe_gemm(y, r, gate_up, down)
+        moe.moe_gemm(y, r, gate_up, down, out=out)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert moe.moe_gemm.launches == before + 6
+    want = moe.moe_gemm_reference(y, r, gate_up, down)
+    rel = ((got - want).norm(dim=1) / want.norm(dim=1)).max()
+    assert float(rel) < 4e-3
+    rel_out = ((out - base - want).norm(dim=1) / want.norm(dim=1)).max()
+    assert float(rel_out) < 4e-3
+    # each run against the next expert's weights is far off
+    off = moe.moe_gemm(y, r, gate_up.roll(1, 0), down.roll(1, 0))
+    assert float(((off - want).norm(dim=1) / want.norm(dim=1)).max()) > 0.1
+
+
+def _mellum_forward_errors(cfg, lengths, seed):
+    """The port's pooled rows of random chunks of `lengths` tokens at `cfg`
+    on the card, against the benchmark's float32 reference and its float8
+    control on the same weights: (program's widest relative error, the
+    control's least)."""
+    from benchmark.reference import mellum as ref
+    from benchmark.reference.minilm import fp8_e4m3
+    from islands_tpu_torch.models import mellum
+
+    w = mellum.init_params(cfg, seed, "cuda")
+    model = mellum.MellumModel(cfg, w)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    slen = max(lengths)
+    table = torch.randint(1000, 29000, (len(lengths), slen), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    lens = np.asarray(lengths)
+    got = model.pooled_rows(table, torch.arange(len(lengths), device="cuda"), lens)
+    want = ref.pooled_rows(w, cfg.to_hf(), table, lens)
+    ctl = ref.pooled_rows(w, cfg.to_hf(), table, lens, cast=fp8_e4m3)
+
+    def rel(a):
+        return ((a - want).double().norm(dim=1) / want.double().norm(dim=1)).cpu().numpy()
+
+    return rel(got), rel(ctl)
+
+
+@pytest.mark.cuda
+def test_mellum_one_period_at_published_widths_matches_the_reference():
+    """Four layers (3 sliding, 1 full) of Mellum2-12B-A2.5B at its
+    published widths, chunks of 48-1,100 tokens: the card's bf16 forward
+    against the float32 reference within 5e-2 a row, the float8 control
+    beyond it on every row. The program read 0.0064-0.026 and the control
+    0.090-0.114 on the card: bf16 products over four layers move the
+    router's logits enough that a near-tie in a token's top 8 goes the
+    other way now and then, and the last token's state carries it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from islands_tpu_torch.models import mellum
+
+    cfg = dataclasses.replace(mellum.MellumConfig(), num_hidden_layers=4,
+                              layer_types=mellum.MellumConfig().layer_types[:4])
+    prog, ctl = _mellum_forward_errors(cfg, [48, 104, 192, 77, 1100, 150], 7)
+    print("one period: program", prog.tolist(), "control", ctl.tolist())
+    assert prog.max() < 5e-2 < ctl.min()
+
+
+@pytest.mark.cuda
+def test_mellum_long_chunks_bind_the_window_and_yarn():
+    """All 28 layers at the published widths on 8 chunks of 1,100-4,096
+    tokens, where the sliding layers' window of 1,024 and the full layers'
+    YaRN frequencies bind: the card's forward against the float32
+    reference within 6e-2 a row (bf16 products through 28 layers, and the
+    router's near-ties), the float8 control beyond it on every row."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from islands_tpu_torch.models import mellum
+
+    lengths = [1100, 4096, 1500, 2048, 3000, 1337, 3900, 2600]
+    prog, ctl = _mellum_forward_errors(mellum.MellumConfig(), lengths, 11)
+    print("long chunks: program", prog.tolist(), "control", ctl.tolist())
+    assert prog.max() < 6e-2 < ctl.min()

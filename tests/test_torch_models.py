@@ -226,7 +226,8 @@ def test_presets():
     assert {k: v[1] for k, v in PRESETS.items()} == {
         "minilm-l6": 384, "minilm-l12": 384, "bge-small": 384, "bge-base": 768,
         "bge-large": 1024, "tiny-test": 64, "modernbert-base": 768,
-        "modernbert-large": 1024, "modernbert-tiny-test": 64}
+        "modernbert-large": 1024, "modernbert-tiny-test": 64,
+        "mellum2-12b-a2.5b": 2304, "mellum-tiny-test": 64}
     for name in ("minilm_l6", "minilm_l12", "bge_small", "bge_base", "bge_large", "tiny_test"):
         assert dc.asdict(getattr(tbert.BertConfig, name)()) == \
             dc.asdict(getattr(jbert.BertConfig, name)())
